@@ -1,10 +1,11 @@
 """
 Build and load the port's hand-written CUDA kernels.
 
-``csrc/*.cu`` compile with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with ``ctypes``. The
-build happens at first use, into ``amof_tpu_torch/_build/`` (ignored by
-git), under a name keyed by a hash of the sources and flags, so an edited
+``csrc/*.cu`` compile with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc -c`` per source, all started together, and link into one shared
+library with a plain C interface, loaded with ``ctypes``. The build
+happens at first use, into ``amof_tpu_torch/_build/`` (ignored by git),
+under a name keyed by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one is reused.
 
 ``--fmad=false`` is deliberate: the kernels' integer outputs (histogram
@@ -26,11 +27,12 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rdf_hist.cu", "window_table.cu")
+SOURCES = ("rdf_hist.cu", "window_table.cu", "void_masks.cu",
+           "surface_columns.cu", "flood_fill.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -48,6 +50,15 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
         _P,
     ),
+    "void_masks_launch": (
+        _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _I,
+        _P, _P, _P, _P,
+    ),
+    "surface_columns_launch": (
+        _P, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P,
+        _I, _F, _F, _I, _I, _I, _P, _P, _P, _P,
+    ),
+    "flood_fill_launch": (_P, _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lib = None
@@ -76,25 +87,47 @@ def library_path() -> pathlib.Path:
 
 
 def build() -> pathlib.Path:
-    """Compile csrc/ into the shared library unless it is up to date.
-    The compiler's register/shared-memory report goes to
+    """Compile csrc/ into the shared library unless it is up to date:
+    every source compiles in its own nvcc process, all at once, then one
+    link. The compiler's register/shared-memory report goes to
     ``_build/ptxas.log``."""
     global build_seconds
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{pathlib.Path(s).stem}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                          str(CSRC / src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        so, se = proc.communicate()
+        logs.append(f"== {src}\n{so}{se}")
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode}):\n{se[-3000:]}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n"
+                          f"{link.stderr[-3000:]}")
     build_seconds = time.perf_counter() - t0
-    (BUILD_DIR / "ptxas.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+    (BUILD_DIR / "ptxas.log").write_text("\n".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)  # atomic: no process loads a half-written file
     return out
 

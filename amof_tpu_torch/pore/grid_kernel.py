@@ -1,0 +1,755 @@
+"""
+Pore geometry on the sorted-xy-column path: host planning, the sorted
+atom layouts, the plain PyTorch versions of the void-mask and surface
+kernels, the connectivity chain and the surface classification.
+
+Counterpart of the column path of ``amof_tpu/pore/grid_kernel.py``:
+
+  * numpy planning, copied: ``fibonacci_sphere``, ``xycol_plan``,
+    ``surface_plan``, ``assign_points_to_xytiles``;
+  * the sorted layouts in torch: ``_sort_atoms_xycols`` (atoms bucketed
+    into xy columns, y-edge rows duplicated so every 3x3 column
+    neighbourhood is three contiguous runs), ``masks_layout`` and
+    ``surface_layout``;
+  * the plain versions of kernels #5 and #6: ``void_masks_columns`` and
+    ``surface_valid_columns`` (their CUDA wrappers live in
+    ``pore/surface_kernel.py``);
+  * the connectivity chain ``label_components`` -> ``winding_seeds`` ->
+    ``propagate_channel`` -> ``void_classification_mask``, all through
+    ``propagate_fixpoint``: kernel #7 (``csrc/flood_fill.cu``, union-find
+    labelling) for CUDA tensors, roll-based masked max sweeps to a
+    fixpoint for CPU tensors;
+  * ``surface_candidate_mask``, ``classify_surface_points``,
+    ``grid_lookup``.
+
+Every threshold test compares squared distances in the reference's
+expression order; divisions by a count use a device tensor as divisor
+(CUDA turns a division by a host scalar into a reciprocal multiply).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from amof_tpu_torch.ops.pair_engine import matvec3
+
+# launches of the flood-fill kernel (CPU calls do not count)
+LAUNCHES = {"flood_fill": 0}
+
+_F32 = torch.float32
+_I32 = torch.int32
+
+
+def _div(x, d):
+    """x / d with ``d`` as a device tensor: an IEEE division on every
+    device (CUDA divides by a host scalar as a reciprocal multiply)."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+
+
+def _wrap01(x):
+    return x - torch.floor(x)
+
+
+def host_inverse(cell: torch.Tensor) -> torch.Tensor:
+    """float32 inverse of one cell [3, 3] or a stack [F, 3, 3]: the
+    float64 inverse rounded once, computed on the CPU so the card and the
+    CPU see the same bits. ``amof_tpu`` inverts in float32 per frame
+    (``jnp.linalg.inv``); the two agree exactly where the inverse is
+    representable (power-of-two diagonals with dyadic shears) and within
+    a float32 ulp or two elsewhere."""
+    inv = torch.linalg.inv(cell.detach().to("cpu", torch.float64))
+    return inv.to(_F32).contiguous().to(cell.device)
+
+
+# --------------------------------------------------------------------------
+# Host planning (numpy)
+# --------------------------------------------------------------------------
+
+def fibonacci_sphere(n: int) -> np.ndarray:
+    """n quasi-uniform unit vectors (deterministic surface sampling)."""
+    i = np.arange(n) + 0.5
+    phi = np.pi * (1 + 5**0.5) * i
+    cos_t = 1 - 2 * i / n
+    sin_t = np.sqrt(np.maximum(0, 1 - cos_t**2))
+    return np.stack(
+        [sin_t * np.cos(phi), sin_t * np.sin(phi), cos_t], axis=-1
+    ).astype(np.float32)
+
+
+def _widths(cells) -> list:
+    cells = np.asarray(cells, np.float64)
+    if cells.ndim == 2:
+        cells = cells[None]
+    widths = []
+    for a in range(3):
+        b, c = (a + 1) % 3, (a + 2) % 3
+        cr = np.cross(cells[:, b], cells[:, c])
+        v = np.abs(np.einsum("fi,fi->f", cells[:, a], cr))
+        widths.append(float((v / np.linalg.norm(cr, axis=1)).min()))
+    return widths
+
+
+def xycol_plan(cells, radii_max, dmax, grid_raw, n_atoms):
+    """Static plan for the xy-column mask pass.
+
+    Returns dict(grid, nbx, nby, window, n_zc, wz, wzw, zmargin) or None
+    when the cell is too small for >= 4x4 reach-wide columns (or three
+    windows would cover every atom). Grid x/y dims are rounded so columns
+    tile them exactly. The z-window fields (n_zc, wz, wzw, zmargin) are
+    kept for parity with ``amof_tpu``; the mask pass does not use them.
+    """
+    widths = _widths(cells)
+    reach = float(dmax + radii_max)
+    nbx = int(widths[0] / reach)
+    nby = int(widths[1] / reach)
+    if nbx < 4 or nby < 4:
+        return None
+
+    def round_axis(g_raw, nb_max):
+        """(g, nb): smallest g >= g_raw with g = nb * tv, nb <= nb_max,
+        and g % 8 == 0."""
+        best = None
+        for nb in range(nb_max, 3, -1):
+            tv = -(-g_raw // nb)
+            for bump in range(8):
+                g = nb * (tv + bump)
+                if g % 8 == 0:
+                    if best is None or g < best[0]:
+                        best = (g, nb)
+                    break
+        if best is None:  # fall back to even dims
+            nb = nb_max
+            tv = -(-g_raw // nb)
+            tv += tv % 2
+            return nb * tv, nb
+        return best
+
+    gx, nbx = round_axis(grid_raw[0], nbx)
+    gy, nby = round_axis(grid_raw[1], nby)
+    gz = -(-grid_raw[2] // 4) * 4
+    # slice cap: 3 contiguous columns (plus y-edge duplicates); additive
+    # Poisson tail margin
+    mean3 = 3.0 * n_atoms / (nbx * nby) * (1.0 + 2.0 / nby)
+    w_est = mean3 + 6.0 * np.sqrt(max(mean3, 1.0)) + 16
+    window = int(-(-w_est // 8) * 8)
+    if 3 * window >= n_atoms:
+        return None
+
+    def pad8(lam):
+        return int(-((lam + 6.0 * np.sqrt(max(lam, 1.0)) + 16) // -8) * 8)
+
+    zmargin = reach / widths[2]
+    n_zc = max(
+        (d for d in range(2, 9) if gz % d == 0 and d * zmargin < 1.0),
+        default=0,
+    )
+    wz = wzw = 0
+    if n_zc:
+        wz = pad8(mean3 * (1.0 / n_zc + 2.0 * zmargin))
+        wzw = pad8(mean3 * zmargin)
+        if wz >= window or wz + wzw / n_zc > 0.8 * window:
+            n_zc = 0
+    return {"grid": (gx, gy, gz), "nbx": nbx, "nby": nby,
+            "window": window, "n_zc": n_zc, "wz": wz, "wzw": wzw,
+            "zmargin": float(zmargin) if n_zc else 0.0}
+
+
+def surface_plan(cells, radii_max, probe, n_atoms, chunk: int = 64):
+    """Static plan for ``surface_valid_columns``: coarse xy columns wide
+    enough for the blocker reach R_i + R_j + 2*probe.
+
+    Returns dict(nbx, nby, window, chunk, col_cap) or None when the cell
+    is too small for >= 3 coarse columns per axis."""
+    widths = _widths(cells)
+    reach = float(2.0 * radii_max + 2.0 * probe)
+    nbx = int(widths[0] / reach)
+    nby = int(widths[1] / reach)
+    if nbx < 3 or nby < 3:
+        return None
+    mean3 = 3.0 * n_atoms / (nbx * nby) * (1.0 + 2.0 / nby)
+    w_est = mean3 + 6.0 * np.sqrt(max(mean3, 1.0)) + 16
+    window = int(-(-w_est // 8) * 8)
+    if 3 * window >= n_atoms:
+        return None
+    col_mean = n_atoms / (nbx * nby)
+    cap_est = col_mean + 5.5 * np.sqrt(max(col_mean, 1.0)) + 8
+    col_cap = int(-(-cap_est // chunk) * chunk)
+    return {"nbx": nbx, "nby": nby, "window": window, "chunk": chunk,
+            "col_cap": col_cap}
+
+
+def assign_points_to_xytiles(pts, plan):
+    """Host-side static assignment of sample points to xy-column tiles.
+
+    Returns (pts_tiled f32[nbx*nby, P, 3], weights f32[nbx*nby, P]): P is
+    the exact max tile occupancy; padding slots sit at the tile center
+    with weight 0."""
+    pts = np.asarray(pts, np.float32)
+    nbx, nby = plan["nbx"], plan["nby"]
+    ti = np.minimum((pts[:, 0] * nbx).astype(np.int64), nbx - 1)
+    tj = np.minimum((pts[:, 1] * nby).astype(np.int64), nby - 1)
+    tile = ti * nby + tj
+    n_tiles = nbx * nby
+    counts = np.bincount(tile, minlength=n_tiles)
+    cap = int(counts.max())
+    out = np.empty((n_tiles, cap, 3), np.float32)
+    t_ids = np.arange(n_tiles)
+    out[:, :, 0] = ((t_ids // nby) + 0.5)[:, None] / nbx
+    out[:, :, 1] = ((t_ids % nby) + 0.5)[:, None] / nby
+    out[:, :, 2] = 0.5
+    w = np.zeros((n_tiles, cap), np.float32)
+    order = np.argsort(tile, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    for t in np.nonzero(counts)[0]:
+        sel = order[starts[t]:starts[t + 1]]
+        out[t, :counts[t]] = pts[sel]
+        w[t, :counts[t]] = 1.0
+    return out, w
+
+
+# --------------------------------------------------------------------------
+# Sorted layouts (torch)
+# --------------------------------------------------------------------------
+
+def _sort_atoms_xycols(frac_atoms, extra, nbx: int, nby: int):
+    """Sort atoms by xy-column with y-edge duplication.
+
+    Column key space is ``bx * (nby + 2) + (by + 1)``: atoms of row
+    by == nby-1 are duplicated at shifted index 0 and atoms of by == 0 at
+    shifted index nby+1, so any [by-1, by+1] query inside an x row is one
+    contiguous run. Keys carry ``fz`` as their fraction; the sort is
+    stable.
+
+    Returns (keys f32[M], payload f32[3 + len(extra), M]) with payload
+    rows (fx, fy, fz, *extra); duplicates keep their original coordinates.
+    """
+    fx = _wrap01(frac_atoms[:, 0])
+    fy = _wrap01(frac_atoms[:, 1])
+    fz = _wrap01(frac_atoms[:, 2])
+    bx = torch.clamp((fx * nbx).to(_I32), max=nbx - 1)
+    by = torch.clamp((fy * nby).to(_I32), max=nby - 1)
+    stride = nby + 2
+    key0 = (bx * stride + by + 1).to(_F32) + fz
+    far = torch.full_like(fz, 3e9)
+    key_lo = torch.where(by == nby - 1, (bx * stride).to(_F32) + fz, far)
+    key_hi = torch.where(
+        by == 0, (bx * stride + nby + 1).to(_F32) + fz, far)
+    keys = torch.cat([key0, key_lo, key_hi])
+    payload = torch.stack([torch.cat([c, c, c])
+                           for c in [fx, fy, fz] + list(extra)])
+    keys, order = torch.sort(keys, stable=True)
+    return keys.contiguous(), payload[:, order].contiguous()
+
+
+def _runs(cstarts, c0: np.ndarray, window: int):
+    """(start i32[..., 3], rows to read i32[..., 3], missed bool[]) of the
+    three runs [cstarts[c0], cstarts[c0 + 3]) per row of ``c0``."""
+    c0_t = torch.as_tensor(c0, device=cstarts.device)
+    st = cstarts[c0_t]
+    en = cstarts[c0_t + 3]
+    missed = torch.any((en - st) > window)
+    cnt = torch.clamp(en - st, max=window)
+    return st.to(_I32).contiguous(), cnt.to(_I32).contiguous(), missed
+
+
+def _neighbourhood_columns(cols: np.ndarray, nbx: int, nby: int):
+    """Shifted-y start column of the three x rows around each column."""
+    ci, cj = cols // nby, cols % nby
+    return (((ci[:, None] + np.array([-1, 0, 1])[None, :]) % nbx)
+            * (nby + 2) + cj[:, None])
+
+
+class MaskLayout(NamedTuple):
+    payload: torch.Tensor  # f32 [4, M]: fx, fy, fz, radius (column order)
+    start: torch.Tensor    # i32 [T, 3]: first row of each run of a tile
+    count: torch.Tensor    # i32 [T, 3]: rows of each run read (<= window)
+    missed: torch.Tensor   # bool []: a run longer than ``window``
+
+
+def masks_layout(frac_atoms, radii, nbx: int, nby: int,
+                 window: int) -> MaskLayout:
+    """Candidate runs of every xy tile for the void-mask pass."""
+    keys, payload = _sort_atoms_xycols(frac_atoms, [radii], nbx, nby)
+    stride = nby + 2
+    cstarts = torch.searchsorted(
+        keys, torch.arange(nbx * stride + 1, dtype=_F32,
+                           device=keys.device))
+    c0 = _neighbourhood_columns(np.arange(nbx * nby), nbx, nby)
+    st, cnt, missed = _runs(cstarts, c0, window)
+    return MaskLayout(payload, st, cnt, missed)
+
+
+class SurfaceLayout(NamedTuple):
+    centers: torch.Tensor   # f32 [5, N]: fx, fy, fz, radius, atom index
+    c_bounds: torch.Tensor  # i32 [C + 1]: column ranges of ``centers``
+    cand_end: torch.Tensor  # i32 [C]: end of each column's candidates
+    blockers: torch.Tensor  # f32 [5, M]: fx, fy, fz, radius, atom index
+    b_start: torch.Tensor   # i32 [C, 3]: blocker runs of each column
+    b_count: torch.Tensor   # i32 [C, 3]
+    nudge: torch.Tensor     # f32 [K, 3]: outward nudge, fractional
+    missed: torch.Tensor    # bool []
+
+
+def surface_layout(frac_atoms, inv_cell, radii, r_probe, dirs, grid,
+                   nbx: int, nby: int, window: int, col_cap: int,
+                   cand_mask=None) -> SurfaceLayout:
+    """Centers sorted by coarse column with candidate atoms first (so the
+    slots after a column's candidate prefix skip the blocker pass), and
+    the y-duplicated blocker runs of every column."""
+    n = frac_atoms.shape[0]
+    dev = frac_atoms.device
+    n_cols = nbx * nby
+    fx = _wrap01(frac_atoms[:, 0])
+    fy = _wrap01(frac_atoms[:, 1])
+    fz = _wrap01(frac_atoms[:, 2])
+    bx = torch.clamp((fx * nbx).to(_I32), max=nbx - 1)
+    by = torch.clamp((fy * nby).to(_I32), max=nby - 1)
+    gidx = torch.arange(n, dtype=_F32, device=dev)
+    cand = surface_candidate_mask(frac_atoms, inv_cell, radii, r_probe,
+                                  dirs, grid, cand_mask)
+    key_c = (bx * nby + by).to(_F32) + torch.where(
+        cand, fz * 0.5, 0.5 + fz * 0.5)
+    keys_c, order = torch.sort(key_c, stable=True)
+    centers = torch.stack([fx, fy, fz, radii, gidx])[:, order].contiguous()
+    cols = torch.arange(n_cols + 1, dtype=_F32, device=dev)
+    c_bounds = torch.searchsorted(keys_c, cols).to(_I32)
+    cand_end = torch.searchsorted(keys_c, cols[:-1] + 0.5).to(_I32)
+    missed = torch.any((c_bounds[1:] - c_bounds[:-1]) > col_cap)
+
+    keys_b, blockers = _sort_atoms_xycols(frac_atoms, [radii, gidx],
+                                          nbx, nby)
+    cstarts_b = torch.searchsorted(
+        keys_b, torch.arange(nbx * (nby + 2) + 1, dtype=_F32, device=dev))
+    b0 = _neighbourhood_columns(np.arange(n_cols), nbx, nby)
+    b_st, b_cnt, b_missed = _runs(cstarts_b, b0, window)
+    nudge = matvec3(dirs * 0.2, inv_cell).contiguous()
+    return SurfaceLayout(centers, c_bounds.contiguous(),
+                         cand_end.contiguous(), blockers, b_st, b_cnt,
+                         nudge, missed | b_missed)
+
+
+# --------------------------------------------------------------------------
+# Kernel #5's plain version: probe/channel voxel masks + MC point fits
+# --------------------------------------------------------------------------
+
+def _tile_centers(t, nbx: int, nby: int):
+    ti, tj = t // nby, t % nby
+    return (ti, tj, _div(ti.to(_F32) + 0.5, nbx), _div(tj.to(_F32) + 0.5, nby))
+
+
+def _gather_runs(payload, start, count, window: int):
+    """Rows of the three runs of each tile: (columns [b, 3W] of payload
+    rows, ok bool[b, 3W] marking rows inside their run)."""
+    w_idx = torch.arange(window, device=payload.device, dtype=_I32)
+    rows = start[:, :, None] + w_idx
+    ok = (w_idx < count[:, :, None]).reshape(start.shape[0], -1)
+    rows = torch.clamp(rows, max=payload.shape[1] - 1).reshape(
+        start.shape[0], -1).long()
+    return [payload[i][rows] for i in range(payload.shape[0])], ok
+
+
+def _square(x):
+    return x * x
+
+
+def void_masks_tiles_plain(lay: MaskLayout, cell, grid, nbx: int, nby: int,
+                           window: int, thr_hi: float, thr_lo: float,
+                           thr_fit: float, pts_tiled=None,
+                           tile_batch: int = 4):
+    """Plain version of kernel #5 on a prepared layout.
+
+    For each xy tile and each of its voxels, ``d2 >= (R_j + thr)^2`` over
+    every candidate row of the tile's three runs, with the factorized
+    quadratic d2(u) = (QQ + a*u^2) + u*QZ2 on the z-minimum-imaged
+    offset u; MC points test ``d2 >= (R_j + thr_fit)^2`` on the unwrapped
+    candidate positions. Returns (hi bool[gx, gy, gz], lo, fit bool[T, P]
+    or None)."""
+    dev = lay.payload.device
+    gx, gy, gz = grid
+    tvx, tvy = gx // nbx, gy // nby
+    n_tiles, n_sub = nbx * nby, tvx * tvy
+    c = cell
+    azz = c[2, 0] * c[2, 0] + c[2, 1] * c[2, 1] + c[2, 2] * c[2, 2]
+    sub = torch.arange(n_sub, device=dev)
+    lx, ly = (sub // tvy).to(_F32), (sub % tvy).to(_F32)
+    vz = _div(torch.arange(gz, dtype=_F32, device=dev) + 0.5, gz)
+    two = thr_hi != thr_lo
+    hi_t = torch.empty((n_tiles, n_sub, gz), dtype=torch.bool, device=dev)
+    lo_t = torch.empty_like(hi_t) if two else hi_t
+    fit = None
+    if pts_tiled is not None:
+        fit = torch.empty(pts_tiled.shape[:2], dtype=torch.bool, device=dev)
+    for t0 in range(0, n_tiles, tile_batch):
+        t = torch.arange(t0, min(t0 + tile_batch, n_tiles), device=dev)
+        ti, tj, cx, cy = _tile_centers(t, nbx, nby)
+        (fx, fy, fz, r), ok = _gather_runs(lay.payload, lay.start[t],
+                                           lay.count[t], window)
+        fxc = fx - torch.round(fx - cx[:, None])
+        fyc = fy - torch.round(fy - cy[:, None])
+        neg = torch.full_like(r, -1.0)
+        th_hi = torch.where(ok, _square(r + thr_hi), neg)
+        sfx = _div((ti * tvx).to(_F32)[:, None] + lx + 0.5, gx)  # [b, S]
+        sfy = _div((tj * tvy).to(_F32)[:, None] + ly + 0.5, gy)
+        dfx = sfx[:, :, None] - fxc[:, None, :]  # [b, S, 3W]
+        dfy = sfy[:, :, None] - fyc[:, None, :]
+        qx = dfx * c[0, 0] + dfy * c[1, 0]
+        qy = dfx * c[0, 1] + dfy * c[1, 1]
+        qz = dfx * c[0, 2] + dfy * c[1, 2]
+        qq = qx * qx + qy * qy + qz * qz
+        qdz = (qx * c[2, 0] + qy * c[2, 1] + qz * c[2, 2]) * 2.0
+        dz = vz[None, :, None] - fz[:, None, :]  # [b, gz, 3W]
+        u = dz - torch.round(dz)
+        uu = azz * (u * u)
+        d2 = (qq[:, :, None, :] + uu[:, None, :, :]
+              + u[:, None, :, :] * qdz[:, :, None, :])  # [b, S, gz, 3W]
+        hi_t[t] = torch.all(d2 >= th_hi[:, None, None, :], dim=-1)
+        if two:
+            th_lo = torch.where(ok, _square(r + thr_lo), neg)
+            lo_t[t] = torch.all(d2 >= th_lo[:, None, None, :], dim=-1)
+        del d2
+        if fit is not None:
+            p = pts_tiled[t]  # [b, P, 3]
+            v = matvec3(p, c)
+            wcx = fxc * c[0, 0] + fyc * c[1, 0] + fz * c[2, 0]
+            wcy = fxc * c[0, 1] + fyc * c[1, 1] + fz * c[2, 1]
+            wcz = fxc * c[0, 2] + fyc * c[1, 2] + fz * c[2, 2]
+            s = torch.round(p[:, :, 2, None] - fz[:, None, :])  # [b, P, 3W]
+            dx = v[:, :, 0, None] - wcx[:, None, :] - s * c[2, 0]
+            dy = v[:, :, 1, None] - wcy[:, None, :] - s * c[2, 1]
+            dzp = v[:, :, 2, None] - wcz[:, None, :] - s * c[2, 2]
+            d2p = dx * dx + dy * dy + dzp * dzp
+            th_f = torch.where(ok, _square(r + thr_fit), neg)
+            fit[t] = torch.all(d2p >= th_f[:, None, :], dim=-1)
+
+    def to_grid(m):
+        g = m.reshape(nbx, nby, tvx, tvy, gz)
+        return g.permute(0, 2, 1, 3, 4).reshape(gx, gy, gz).contiguous()
+
+    return to_grid(hi_t), to_grid(lo_t), fit
+
+
+def mask_thresholds(probe: float, chan: float):
+    """(thr_hi, thr_lo, thr_fit) as float32 values."""
+    return (float(np.float32(max(probe, chan))),
+            float(np.float32(min(probe, chan))),
+            float(np.float32(probe)))
+
+
+def void_masks_columns(frac_atoms, cell, radii, grid, probe: float,
+                       chan: float, nbx: int, nby: int, window: int,
+                       pts_tiled=None):
+    """Probe-fit void masks via sorted xy-columns, plain PyTorch (kernel
+    #5's plain version, any device).
+
+    Returns (mask_probe bool[gx, gy, gz], mask_chan, fit_pts bool[T, P]
+    or None, missed bool[]): the masks are ``d >= probe`` / ``d >= chan``
+    for d the distance to the nearest atom surface, the point fits
+    ``d >= probe`` at the MC points, and ``missed`` flags a candidate run
+    longer than ``window`` (the frame must be recomputed wider)."""
+    if grid[0] % nbx or grid[1] % nby:
+        raise ValueError("xy columns must tile the grid")
+    lay = masks_layout(frac_atoms, radii, nbx, nby, window)
+    thr_hi, thr_lo, thr_fit = mask_thresholds(probe, chan)
+    hi, lo, fit = void_masks_tiles_plain(
+        lay, cell, grid, nbx, nby, window, thr_hi, thr_lo, thr_fit,
+        pts_tiled)
+    m_probe, m_chan = (hi, lo) if probe >= chan else (lo, hi)
+    return m_probe, m_chan, fit, lay.missed
+
+
+def grid_lookup(field, frac_pts, grid):
+    """Nearest-voxel lookup of a grid field at fractional points."""
+    gvec = torch.tensor(grid, dtype=_F32, device=frac_pts.device)
+    gmax = torch.tensor(grid, dtype=_I32, device=frac_pts.device) - 1
+    f = _wrap01(frac_pts)
+    idx = torch.minimum((f * gvec).to(_I32), gmax).long()
+    return field[idx[..., 0], idx[..., 1], idx[..., 2]]
+
+
+# --------------------------------------------------------------------------
+# Kernel #6's plain version: surface point validity
+# --------------------------------------------------------------------------
+
+def surface_candidate_mask(frac_atoms, inv_cell, radii, r_probe, dirs,
+                           grid, cand_mask):
+    """Exact per-atom candidate prefilter: an atom is a candidate iff any
+    of its K sphere points lands on a voxel of ``cand_mask`` (or, within
+    5e-4 voxel of a voxel boundary, on its periodic 3^3 dilation, which
+    absorbs last-ulp index disagreement with the kernel's own point
+    arithmetic). bool[N]; all true when ``cand_mask`` is None."""
+    n = frac_atoms.shape[0]
+    dev = frac_atoms.device
+    if cand_mask is None:
+        return torch.ones((n,), dtype=torch.bool, device=dev)
+    gvec = torch.tensor(grid, dtype=_F32, device=dev)
+    gmax = torch.tensor(grid, dtype=_I32, device=dev) - 1
+    fbase = _wrap01(frac_atoms)
+    k = dirs.shape[0]
+    md = cand_mask
+    for ax in range(3):  # separable periodic 3^3 dilation
+        md = md | torch.roll(md, 1, ax) | torch.roll(md, -1, ax)
+    code = cand_mask.to(torch.int8) | (md.to(torch.int8) << 1)
+    cflat = code.reshape(-1)
+    fo = matvec3(dirs, inv_cell)  # [K, 3] frac offset per unit dir
+    nshift = matvec3(dirs * 0.2, inv_cell)
+    fp_all = fbase[:, None, :] + (radii[:, None, None] + r_probe) * fo[None]
+
+    def lin_bnd(f):
+        f = _wrap01(f)
+        fg = f * gvec
+        idx = torch.minimum(fg.to(_I32), gmax)
+        lin = (idx[..., 0] * grid[1] + idx[..., 1]) * grid[2] + idx[..., 2]
+        near = torch.any(torch.abs(fg - torch.round(fg)) < 5e-4, dim=-1)
+        return lin, near
+
+    l1, nb1 = lin_bnd(fp_all)
+    l2, nb2 = lin_bnd(fp_all + nshift[None])
+    c1 = cflat[l1.reshape(-1).long()].reshape(n, k)
+    c2 = cflat[l2.reshape(-1).long()].reshape(n, k)
+    cand_pt = (((c1 & 1) | (c2 & 1)) != 0) | (nb1 & (c1 >= 2)) \
+        | (nb2 & (c2 >= 2))
+    return cand_pt.any(dim=1)
+
+
+def _linear_idx(fx, fy, fz, grid):
+    out = []
+    for f, g in zip((fx, fy, fz), grid):
+        f = _wrap01(f)
+        out.append(torch.clamp((f * g).to(_I32), max=g - 1))
+    return (out[0] * grid[1] + out[1]) * grid[2] + out[2]
+
+
+def active_slots(lay: SurfaceLayout, n_z: int, chunk: int):
+    """(slot column, first row, end row) of every slot that runs the
+    blocker pass: a slot is ``chunk`` consecutive centers of one column
+    (at most ``n_z`` per column) that holds a candidate atom."""
+    cb = lay.c_bounds.cpu().numpy().astype(np.int64)
+    ce = lay.cand_end.cpu().numpy().astype(np.int64)
+    n_cols = len(ce)
+    z = np.arange(n_z)
+    lo = cb[:-1, None] + z[None, :] * chunk
+    hi = np.minimum(lo + chunk, cb[1:, None])
+    act = (lo < hi) & (lo < ce[:, None])
+    col = np.broadcast_to(np.arange(n_cols)[:, None], lo.shape)
+    return col[act], lo[act], hi[act]
+
+
+def surface_valid_tiles_plain(lay: SurfaceLayout, cell, inv_cell, dirs,
+                              r_probe: float, grid, nbx: int, nby: int,
+                              window: int, n_z: int, chunk: int,
+                              slot_batch: int = 16):
+    """Plain version of kernel #6 on a prepared layout: for the centers of
+    every active slot and every direction k, the point p = c + (R + probe)
+    * dir_k, its voxel and its outward nudge's voxel (linear indices), and
+    ``valid``: d2 > (R_j + probe - 1e-4)^2 against every blocker of the
+    column's three runs but the atom itself. Rows outside active slots
+    keep valid False and indices 0."""
+    dev = lay.centers.device
+    n = lay.centers.shape[1]
+    k = dirs.shape[0]
+    c, ic = cell, inv_cell
+    rp = float(np.float32(r_probe))
+    peps = float(np.float32(r_probe) - np.float32(1e-4))
+    valid = torch.zeros((n, k), dtype=torch.bool, device=dev)
+    i_pt = torch.zeros((n, k), dtype=_I32, device=dev)
+    i_nu = torch.zeros((n, k), dtype=_I32, device=dev)
+    cols, los, his = active_slots(lay, n_z, chunk)
+    ch = torch.arange(chunk, device=dev)
+    for s0 in range(0, len(cols), slot_batch):
+        col = torch.as_tensor(cols[s0:s0 + slot_batch], device=dev)
+        lo = torch.as_tensor(los[s0:s0 + slot_batch], device=dev)
+        hi = torch.as_tensor(his[s0:s0 + slot_batch], device=dev)
+        _, _, ucx, ucy = _tile_centers(col, nbx, nby)
+        rows = lo[:, None] + ch  # [a, CH]
+        live = rows < hi[:, None]
+        rows = torch.clamp(rows, max=n - 1)
+        fx, fy, fz, ra, cg = (lay.centers[i][rows] for i in range(5))
+        fxu = fx - torch.round(fx - ucx[:, None])
+        fyu = fy - torch.round(fy - ucy[:, None])
+        ccx = fxu * c[0, 0] + fyu * c[1, 0] + fz * c[2, 0]
+        ccy = fxu * c[0, 1] + fyu * c[1, 1] + fz * c[2, 1]
+        ccz = fxu * c[0, 2] + fyu * c[1, 2] + fz * c[2, 2]
+        rx = (ra + rp)[:, :, None]
+        px = ccx[:, :, None] + rx * dirs[:, 0]  # [a, CH, K]
+        py = ccy[:, :, None] + rx * dirs[:, 1]
+        pz = ccz[:, :, None] + rx * dirs[:, 2]
+        fpx = px * ic[0, 0] + py * ic[1, 0] + pz * ic[2, 0]
+        fpy = px * ic[0, 1] + py * ic[1, 1] + pz * ic[2, 1]
+        fpz = px * ic[0, 2] + py * ic[1, 2] + pz * ic[2, 2]
+        lin = _linear_idx(fpx, fpy, fpz, grid)
+        lin_n = _linear_idx(fpx + lay.nudge[:, 0], fpy + lay.nudge[:, 1],
+                            fpz + lay.nudge[:, 2], grid)
+
+        (bx, by, bz, br, bg), ok = _gather_runs(
+            lay.blockers, lay.b_start[col], lay.b_count[col], window)
+        wx = bx - torch.round(bx - ucx[:, None])
+        wy = by - torch.round(by - ucy[:, None])
+        wcx = wx * c[0, 0] + wy * c[1, 0] + bz * c[2, 0]  # [a, 3W]
+        wcy = wx * c[0, 1] + wy * c[1, 1] + bz * c[2, 1]
+        wcz = wx * c[0, 2] + wy * c[1, 2] + bz * c[2, 2]
+        thr = torch.where(ok, _square(br + peps), torch.full_like(br, -1.0))
+        e = (slice(None), None, None, slice(None))  # [a, 1, 1, 3W]
+        zs = torch.round(fpz[..., None] - bz[e])  # [a, CH, K, 3W]
+        dx = px[..., None] - wcx[e] - zs * c[2, 0]
+        dy = py[..., None] - wcy[e] - zs * c[2, 1]
+        dz = pz[..., None] - wcz[e] - zs * c[2, 2]
+        d2 = dx * dx + dy * dy + dz * dz
+        te = torch.where(bg[e] == cg[:, :, None, None],
+                         torch.full_like(d2, -1.0), thr[e])
+        ok_pt = torch.all(d2 > te, dim=-1) & live[:, :, None]
+        sel = rows[live]
+        valid[sel] = ok_pt[live]
+        i_pt[sel] = lin[live]
+        i_nu[sel] = lin_n[live]
+    return valid, i_pt, i_nu
+
+
+def surface_valid_columns(frac_atoms, cell, radii, r_probe, dirs, grid,
+                          nbx: int, nby: int, window: int, chunk: int,
+                          col_cap: int, cand_mask=None, inv_cell=None):
+    """Per-point surface validity + voxel indices via coarse sorted xy
+    columns, plain PyTorch (kernel #6's plain version, any device).
+
+    Zeo++'s ASA construction: for each atom i, K points on the sphere of
+    radius R_i + probe; a point counts iff it lies outside every OTHER
+    atom's inflated sphere. ``cand_mask`` (the channel mask) enables the
+    exact candidate prefilter: slots of ``chunk`` centers without a
+    candidate atom skip the blocker pass.
+
+    Returns (valid bool[N, K], idx_pt i32[N, K], idx_nudge i32[N, K],
+    orig_idx i32[N], radii f32[N], missed bool[]), rows in the layout's
+    center order (one row per atom)."""
+    if inv_cell is None:
+        inv_cell = host_inverse(cell)
+    lay = surface_layout(frac_atoms, inv_cell, radii, r_probe, dirs, grid,
+                         nbx, nby, window, col_cap, cand_mask)
+    n_z = -(-col_cap // chunk)
+    valid, i_pt, i_nu = surface_valid_tiles_plain(
+        lay, cell, inv_cell, dirs, r_probe, grid, nbx, nby, window, n_z,
+        chunk)
+    return (valid, i_pt, i_nu, lay.centers[4].to(_I32), lay.centers[3],
+            lay.missed)
+
+
+def classify_surface_points(valid, idx_pt, idx_nudge, accessible, pocket):
+    """(acc_counts i32[S], nacc_counts i32[S]): per-slot counts of valid
+    points whose voxel (or outward nudge's voxel) is accessible, and of
+    the remaining valid points that land in a pocket."""
+    code = (accessible.to(torch.int8)
+            + 2 * pocket.to(torch.int8)).reshape(-1)
+    c1 = code[idx_pt.reshape(-1).long()].reshape(idx_pt.shape)
+    c2 = code[idx_nudge.reshape(-1).long()].reshape(idx_nudge.shape)
+    acc = (c1 == 1) | (c2 == 1)
+    poc = (c1 == 2) | (c2 == 2)
+    return (torch.sum(valid & acc, dim=1).to(_I32),
+            torch.sum(valid & ~acc & poc, dim=1).to(_I32))
+
+
+# --------------------------------------------------------------------------
+# Connectivity: the flood-fill fixpoint (kernel #7) and its callers
+# --------------------------------------------------------------------------
+
+def _neighbor_max(labels, mask, periodic: bool):
+    """One 6-neighbour max-propagation sweep over the masked region."""
+    out = labels
+    for axis in range(3):
+        for shift in (1, -1):
+            rolled = torch.roll(labels, shift, axis)
+            if not periodic:
+                # drop the contribution that wrapped around
+                idx = 0 if shift == 1 else labels.shape[axis] - 1
+                rolled.select(axis, idx).fill_(-1)
+            out = torch.maximum(out, rolled)
+    return torch.where(mask, out, torch.full_like(out, -1))
+
+
+def propagate_fixpoint_plain(init, periodic: bool, sweeps: int = 8):
+    """Plain version of kernel #7: masked 6-neighbour max sweeps (walls
+    are init < 0, returned as -1) until nothing changes."""
+    mask = init >= 0
+    labels = torch.where(mask, init, torch.full_like(init, -1))
+    while True:
+        new = labels
+        for _ in range(sweeps):
+            new = _neighbor_max(new, mask, periodic)
+        if torch.equal(new, labels):
+            return labels
+        labels = new
+
+
+def _check_labels(init):
+    if init.dtype != _I32 or init.dim() != 3:
+        raise ValueError("init must be int32 [gx, gy, gz]")
+    if not init.is_contiguous():
+        raise ValueError("init must be contiguous")
+    if init.numel() >= 2**31:
+        raise ValueError("grid too large for int32 voxel indices")
+
+
+def propagate_fixpoint(init, periodic: bool):
+    """Fixpoint of masked 6-neighbour max propagation: every voxel with
+    init >= 0 ends with the maximum init over its connected component
+    (6-connectivity; periodic or open boundaries), every other voxel with
+    -1. Kernel #7 (``csrc/flood_fill.cu``) for CUDA tensors, the plain
+    sweeps for CPU tensors."""
+    _check_labels(init)
+    if init.device.type == "cpu":
+        return propagate_fixpoint_plain(init, periodic)
+    from amof_tpu_torch import _build
+
+    gx, gy, gz = init.shape
+    parent = torch.empty_like(init)
+    out = torch.empty_like(init)
+    err = _build.library().flood_fill_launch(
+        init.data_ptr(), gx, gy, gz, int(bool(periodic)), parent.data_ptr(),
+        out.data_ptr(), _build.stream_ptr(init.device))
+    _build.check(err, "flood_fill")
+    LAUNCHES["flood_fill"] += 1
+    return out
+
+
+def label_components(mask, periodic: bool = True):
+    """Connected-component labels of a 3-d boolean mask (6-connectivity):
+    the largest voxel linear index of each component; -1 outside."""
+    init = torch.where(
+        mask,
+        torch.arange(mask.numel(), dtype=_I32,
+                     device=mask.device).reshape(mask.shape),
+        torch.full(mask.shape, -1, dtype=_I32, device=mask.device))
+    return propagate_fixpoint(init, periodic)
+
+
+def winding_seeds(open_labels, mask):
+    """Voxels on a periodic face where the open component meets itself
+    across the wrap (label equal on opposite faces)."""
+    seeds = torch.zeros(mask.shape, dtype=torch.bool, device=mask.device)
+    for axis in range(3):
+        a = open_labels.select(axis, -1)
+        b = open_labels.select(axis, 0)
+        wins = (a == b) & (a >= 0)
+        last = seeds.select(axis, -1)
+        last |= wins
+        first = seeds.select(axis, 0)
+        first |= wins
+    return seeds & mask
+
+
+def propagate_channel(channel_seed, mask):
+    """Channel membership spread through periodic connectivity: every
+    voxel periodically connected to a seed is accessible."""
+    seed = torch.where(channel_seed, 1, torch.where(mask, 0, -1)).to(_I32)
+    return propagate_fixpoint(seed, True) == 1
+
+
+def void_classification_mask(mask):
+    """(mask, accessible, pocket) from a probe-fit mask: open components
+    that meet themselves across a periodic face are channels; channel
+    status spreads through periodic connectivity; the rest of the mask is
+    pocket."""
+    open_labels = label_components(mask, periodic=False)
+    seeds = winding_seeds(open_labels, mask)
+    accessible = propagate_channel(seeds, mask)
+    return mask, accessible, mask & ~accessible

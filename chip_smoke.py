@@ -31,7 +31,22 @@ Phases, each reported on its own line(s) of standard output:
   7. stage split: the main path once more with a synchronize around each
      stage (host ms per frame; the table goes to chiprun_out/).
 
-The second-to-last line is a JSON object describing the kernels; the last
+The batched pore step (``BatchedPore``, column path) joins each phase at
+bench.py's pore configuration (resolution 0.25 A, MC volume with 50000
+samples, 0.5 A connectivity grid, the first 32 frames of the same
+trajectory): phase 3 checks kernels #5 (void masks), #6 (surface
+blockers) and #7 (flood fill; also on a (16, 512, 512) grid, where the
+JAX package would take kernel #8) against their plain versions; phase 4
+runs the pore step on its own with the counters zeroed (all three must
+launch, no frame may stay missed, records finite), plus a side run on the
+glass with z squeezed into 72% of the box (a void slab: ASA and AV > 0);
+phase 5 compares card and CPU on a 2048-atom excerpt (masks, labels, fits
+and per-atom validity equal, records to rel 1e-5); phase 6 times pore
+ms/frame, prepare and the kernels; phase 7 splits the pore step by stage.
+
+The second-to-last line is a JSON object describing the kernels (with
+each one's bound: the larger of the bytes it must move over 3.35 TB/s and
+its f32 operations over 67 TFLOP/s, H100 SXM data sheet); the last
 is ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 that line. Without a CUDA device the script fails; it never runs on the
 CPU instead. It imports nothing of JAX or of the JAX package.
@@ -50,6 +65,12 @@ BENCH = dict(dr=0.01, dtheta=0.05, chunk=256, max_neighbors=8,
              frames_per_call=128)
 OUT_DIR = "chiprun_out"  # long outputs of a run (git-ignored)
 
+PORE = dict(resolution=0.25, vol_method="mc", conn_resolution=0.5)
+PORE_FRAMES = 32
+FLOOD_8_GRID = (16, 512, 512)  # no block-skip shape in the JAX package
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+F32_OPS_PER_S = 67e12
+
 KERNELS = [
     # name, source, the Pallas call it replaces
     ("rdf_counts_blocked", "amof_tpu_torch/csrc/rdf_hist.cu",
@@ -60,12 +81,20 @@ KERNELS = [
      "amof_tpu/ops/pallas_neighbors.py:336"),
     ("window_table", "amof_tpu_torch/csrc/window_table.cu",
      "amof_tpu/ops/pallas_neighbors.py:163"),
+    ("void_masks_points", "amof_tpu_torch/csrc/void_masks.cu",
+     "amof_tpu/pore/surface_kernel.py:607"),
+    ("surface_valid_columns", "amof_tpu_torch/csrc/surface_columns.cu",
+     "amof_tpu/pore/surface_kernel.py:333"),
+    ("flood_fill", "amof_tpu_torch/csrc/flood_fill.cu",
+     "amof_tpu/pore/grid_kernel.py:937"),
 ]
 
 
 # kernels that bench.py's configuration launches; rdf_counts (#2) runs
 # only where the species-blocked layout would pad past 1.5x
 MAIN_PATH = ("rdf_counts_blocked", "window_table_slab", "window_table")
+# kernels of the batched pore step (its own main path)
+PORE_PATH = ("void_masks_points", "surface_valid_columns", "flood_fill")
 
 
 class SmokeFailure(Exception):
@@ -240,18 +269,25 @@ def kernel_checks(args, meta, batch, dev, frames=(0, 1, 2),
     return res
 
 
-def reset_launches():
+def _counters():
     from amof_tpu_torch.ops import neighbor_kernel, rdf_kernel
+    from amof_tpu_torch.pore import grid_kernel, surface_kernel
 
-    for d in (rdf_kernel.LAUNCHES, neighbor_kernel.LAUNCHES):
+    return (rdf_kernel.LAUNCHES, neighbor_kernel.LAUNCHES,
+            surface_kernel.LAUNCHES, grid_kernel.LAUNCHES)
+
+
+def reset_launches():
+    for d in _counters():
         for key in d:
             d[key] = 0
 
 
 def read_launches():
-    from amof_tpu_torch.ops import neighbor_kernel, rdf_kernel
-
-    return {**rdf_kernel.LAUNCHES, **neighbor_kernel.LAUNCHES}
+    out = {}
+    for d in _counters():
+        out.update(d)
+    return out
 
 
 # stages of the fused step timed by stage_split: (module, attribute, label);
@@ -388,13 +424,49 @@ def cpu_parity(batch, n_frames=2):
         f"differences; MSD rtol 1e-4 ({time.perf_counter() - t0:.1f} s)")
 
 
-def profile_step(batch, dev, n_frames=16):
-    """Device time by kernel name over a short fused run (torch.profiler);
-    the full table goes to OUT_DIR."""
+def profiled(run, n_frames, title, out_name):
+    """Device time by kernel name over one ``run()`` (torch.profiler),
+    after one warm-up call; the full table goes to OUT_DIR/out_name.
+    Returns the device busy share, or None where the profiler saw no
+    device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    table = prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=40)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, out_name), "w") as fh:
+        fh.write(table)
+    # device-side events only (kernels, memcpy, memset): the aten rows
+    # repeat their kernels' time as "self CUDA"
+    evs = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not evs:
+        say(f"{title}: the profiler reported no device events (busy share "
+            "not measured)")
+        return None
+    busy = sum(e.self_device_time_total for e in evs) / 1e3  # ms
+    share = busy / (wall * 1e3)
+    say(f"{title} ({n_frames} frames): wall {wall * 1e3:.1f} ms, "
+        f"device busy {busy:.1f} ms ({100 * share:.0f}%), idle "
+        f"{100 * (1 - share):.0f}%")
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
+        say(f"  {e.self_device_time_total / 1e3 / n_frames:8.3f} ms/frame "
+            f"{e.count / n_frames:6.1f}/frame  {e.key[:70]}")
+    return share
+
+
+def profile_step(batch, dev, n_frames=16):
+    """Device time by kernel name over a short fused run (no MSD)."""
     from amof_tpu_torch.parallel.pipeline import FusedAnalysis
 
     sub = batch._replace(positions=batch.positions[:n_frames],
@@ -403,35 +475,402 @@ def profile_step(batch, dev, n_frames=16):
     kw = {k: v for k, v in BENCH.items() if k != "frames_per_call"}
     step_fn, args, _ = FusedAnalysis(CUTOFFS, with_msd=False, **kw).prepare(
         sub, device=dev)
-    step_fn(*args)
+    profiled(lambda: step_fn(*args), n_frames, "profile, no MSD",
+             "chip_smoke_profile.txt")
+
+
+# --------------------------------------------------------------------------
+# The batched pore step (BatchedPore, column path)
+# --------------------------------------------------------------------------
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``n_bytes`` and do ``n_ops`` f32 operations."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def fused_work(args, meta, batch, window_check=(16, 256, 1408)):
+    """(bytes, f32 operations) of one call of kernels #1-#4 at the fused
+    step's shapes: each input read once, each output written once; ~26
+    operations per atom pair of the histogram, ~35 per candidate test of
+    the neighbour tables (the candidate rows each center scans)."""
+    n = batch.num_atoms
+    n_pad = args.positions.shape[1]
+    s = len(meta["unique"])
+    hist = 4 * s * s * meta["bins"]
+    pairs = n * (n - 1) // 2
+    plan = meta["bad_slab"]
+    k = BENCH["max_neighbors"]
+    kk, chunk, w = window_check
+    n_pad_u = -(-n // BENCH["chunk"]) * BENCH["chunk"]
+    return {
+        "rdf_counts_blocked": (16 * n_pad + hist, 26 * pairs),
+        "rdf_counts": (16 * n_pad_u + hist, 26 * pairs),
+        "window_table_slab": (
+            32 * plan.m_centers + 32 * plan.m_cand
+            + 16 * k * plan.m_centers, 35 * 3 * plan.window * n),
+        "window_table": (16 * n_pad + 16 * kk * n_pad,
+                         35 * (chunk + 2 * w) * n_pad),
+    }
+
+
+def pore_batch_of(batch, n_frames, squeeze=None):
+    pos = batch.positions[:n_frames]
+    if squeeze is not None:
+        pos = pos.copy()
+        pos[..., 2] *= squeeze
+    return batch._replace(positions=pos, cell=batch.cell[:n_frames],
+                          step=batch.step[:n_frames])
+
+
+def pore_frame_inputs(pb, meta, dev, frame=0):
+    """One frame's kernel inputs, as BatchedPore builds them: (frac, cell,
+    inverse, radii, dirs, MC points tiled)."""
+    import numpy as np
+    import torch
+
+    from amof_tpu_torch.data import elements
+    from amof_tpu_torch.ops.pair_engine import matvec3
+    from amof_tpu_torch.pore import grid_kernel
+    from amof_tpu_torch.pore.zeopp import DEFAULT_NUM_SAMPLES
+
+    cell = torch.from_numpy(np.ascontiguousarray(pb.cell[frame])).to(dev)
+    inv = grid_kernel.host_inverse(cell)
+    pos = torch.from_numpy(np.ascontiguousarray(pb.positions[frame])).to(dev)
+    frac = matvec3(pos, inv)
+    frac = (frac - torch.floor(frac)).contiguous()
+    radii = elements.vdw_radius_array()[pb.species].astype(np.float32)
+    dirs = grid_kernel.fibonacci_sphere(meta["k"])
+    pts = np.random.default_rng(20240817).random(
+        (DEFAULT_NUM_SAMPLES, 3)).astype(np.float32)
+    pts_tiled, _ = grid_kernel.assign_points_to_xytiles(pts, meta["col_plan"])
+    return (frac, cell, inv, torch.from_numpy(radii).to(dev),
+            torch.from_numpy(dirs).to(dev), torch.from_numpy(pts_tiled).to(dev))
+
+
+def pore_kernel_checks(pb, meta, dev):
+    """Phase 3, pore: kernels #5, #6, #7 against their plain versions at
+    the bench pore shapes on frame 0. Returns ({name: (max_abs_err, ms,
+    plain_ms)}, {name: (bytes, operations)})."""
+    import numpy as np
+    import torch
+
+    from amof_tpu_torch.pore import grid_kernel as gk
+    from amof_tpu_torch.pore import surface_kernel as sk
+
+    frac, cell, inv, radii, dirs, pts = pore_frame_inputs(pb, meta, dev)
+    cp, sp = meta["col_plan"], meta["surf_plan"]
+    grid = cp["grid"]
+    n_vox = grid[0] * grid[1] * grid[2]
+    res, work = {}, {}
+
+    def equal(name, got, ref, what):
+        got = [g for g in got if g is not None]
+        ref = [r for r in ref if r is not None]
+        check(len(got) == len(ref), f"{name}: output count")
+        for g, r in zip(got, ref):
+            check(g.shape == r.shape and g.dtype == r.dtype,
+                  f"{name}: shape/dtype {g.shape} {g.dtype} vs "
+                  f"{r.shape} {r.dtype} ({what})")
+            check(torch.equal(g, r), f"{name}: kernel != plain ({what}; "
+                  f"{int((g != r).sum())} items differ)")
+
+    def timed(name, kern, plain, errs=0.0):
+        """Times one call of the kernel alone and of its plain version on
+        the same prepared layout (the sorts that build it are glue,
+        timed by the stage split)."""
+        ms = cuda_ms(kern, reps=10, warmup=2)
+        plain_ms = cuda_ms(plain, reps=2, warmup=1)
+        res[name] = (errs, ms, plain_ms)
+        say(f"kernel {name}: equal to plain; {ms:.3f} ms/call vs plain "
+            f"{plain_ms:.3f} ms/call")
+
+    mk = (frac, cell, radii, grid, 1.2, 1.2, cp["nbx"], cp["nby"],
+          cp["window"])
+    got = sk.void_masks_points(*mk, pts_tiled=pts)
+    ref = gk.void_masks_columns(*mk, pts_tiled=pts)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    equal("void_masks_points", got, ref, "masks, MC fits, missed")
+    check(not bool(got[3]), "bench frame 0 missed the mask window")
+    m_chan = got[1]
+    say(f"pore masks: {int(m_chan.sum())} of {n_vox} voxels fit the "
+        f"probe; fits {int(got[2].sum())} of {got[2].numel()} points")
+    lay = gk.masks_layout(frac, radii, cp["nbx"], cp["nby"], cp["window"])
+    thr = gk.mask_thresholds(1.2, 1.2)
+    timed("void_masks_points",
+          lambda: sk._launch_masks(lay, cell, grid, cp["nbx"], cp["nby"],
+                                   *thr, pts),
+          lambda: gk.void_masks_tiles_plain(lay, cell, grid, cp["nbx"],
+                                            cp["nby"], cp["window"], *thr,
+                                            pts))
+    cands = lay.count.sum(dim=1).double()
+    n_sub = (grid[0] // cp["nbx"]) * (grid[1] // cp["nby"])
+    work["void_masks_points"] = (
+        16 * lay.payload.shape[1] + 24 * cands.numel() + n_vox
+        + 13 * pts.shape[0] * pts.shape[1],
+        float(cands.sum()) * (19 * n_sub + 10 * n_sub * grid[2]
+                              + 16 * pts.shape[1]))
+
+    # flood fill: both calls of the chain, then a grid of kernel #8's
+    open_init = torch.where(
+        m_chan, torch.arange(n_vox, dtype=torch.int32,
+                             device=dev).reshape(grid),
+        torch.full(grid, -1, dtype=torch.int32, device=dev))
+    lab = gk.propagate_fixpoint(open_init, False)
+    equal("flood_fill", [lab], [gk.propagate_fixpoint_plain(open_init, False)],
+          "open boundaries, linear-index init")
+    seeds = gk.winding_seeds(lab, m_chan)
+    tern = torch.where(seeds, 1, torch.where(m_chan, 0, -1)).to(torch.int32)
+    acc = gk.propagate_fixpoint(tern, True)
+    equal("flood_fill", [acc], [gk.propagate_fixpoint_plain(tern, True)],
+          "periodic, {1, 0, -1} init")
+    rng = np.random.default_rng(8)
+    m8 = torch.from_numpy(rng.random(FLOOD_8_GRID) < 0.5).to(dev)
+    init8 = torch.where(
+        m8, torch.arange(m8.numel(), dtype=torch.int32,
+                         device=dev).reshape(FLOOD_8_GRID),
+        torch.full(FLOOD_8_GRID, -1, dtype=torch.int32, device=dev))
+    for periodic in (False, True):
+        equal("flood_fill", [gk.propagate_fixpoint(init8, periodic)],
+              [gk.propagate_fixpoint_plain(init8, periodic)],
+              f"{FLOOD_8_GRID} random mask, periodic {periodic}")
+    say(f"flood fill: {int(seeds.sum())} winding seeds, "
+        f"{int((acc == 1).sum())} accessible voxels; equal on "
+        f"{FLOOD_8_GRID} too")
+    timed("flood_fill", lambda: gk.propagate_fixpoint(open_init, False),
+          lambda: gk.propagate_fixpoint_plain(open_init, False))
+    work["flood_fill"] = (8 * n_vox, 6 * n_vox)
+
+    sv = (frac, cell, radii, 1.2, dirs, grid, sp["nbx"], sp["nby"],
+          sp["window"], sp["chunk"], sp["col_cap"])
+    for cand in (m_chan, None):
+        got = sk.surface_valid_columns(*sv, cand_mask=cand, inv_cell=inv)
+        ref = gk.surface_valid_columns(*sv, cand_mask=cand, inv_cell=inv)
+        torch.cuda.synchronize()
+        equal("surface_valid_columns", got, ref,
+              "prefiltered" if cand is not None else "every atom")
+    slay = gk.surface_layout(frac, inv, radii, 1.2, dirs, grid, sp["nbx"],
+                             sp["nby"], sp["window"], sp["col_cap"], m_chan)
+    n_z = -(-sp["col_cap"] // sp["chunk"])
+    cols, los, his = gk.active_slots(slay, n_z, sp["chunk"])
+    say(f"surface: {len(cols)} of {sp['nbx'] * sp['nby'] * n_z} slots hold "
+        f"a candidate atom; {int(ref[0].sum())} valid points unfiltered")
+    sa = (slay, cell, inv, dirs, 1.2, grid, sp["nbx"], sp["nby"])
+    timed("surface_valid_columns",
+          lambda: sk._launch_surface(*sa, n_z, sp["chunk"]),
+          lambda: gk.surface_valid_tiles_plain(*sa, sp["window"], n_z,
+                                               sp["chunk"]))
+    b_rows = slay.b_count.sum(dim=1).cpu().numpy()
+    k = dirs.shape[0]
+    n = frac.shape[0]
+    work["surface_valid_columns"] = (
+        20 * n + 20 * slay.blockers.shape[1] + 9 * n * k,
+        float(np.sum((his - los) * k * (40 + 16 * b_rows[cols]))))
+    return res, work
+
+
+def pore_main(pb, dev):
+    """Phase 4, pore: BatchedPore.run at the bench configuration, counted
+    on its own. Returns (records, meta, launches, seconds)."""
+    import numpy as np
+    import torch
+
+    from amof_tpu_torch.pore import BatchedPore
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records, meta = BatchedPore(**PORE).run(pb, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    say(f"pore main path launches: "
+        f"{ {k: launches[k] for k in PORE_PATH} }")
+    for name in PORE_PATH:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the pore main path")
+    check(len(records) == pb.num_frames, "pore: one record per frame")
+    for r in records:
+        check(all(np.isfinite(v) for v in r.values()), "pore: not finite")
+        check(r["ASA_A^2"] >= 0 and r["AV_A^3"] >= 0, "pore: negative")
+    means = {key: float(np.mean([r[key] for r in records]))
+             for key in ("ASA_A^2", "NASA_A^2", "AV_A^3", "NAV_A^3",
+                         "AV_Volume_fraction")}
+    say(f"pore records ({pb.num_frames} frames, grid {meta['grid']}, "
+        f"K {meta['k']}): means {means} ({wall:.2f} s cold)")
+    return records, meta, launches
+
+
+def pore_side_run(batch, dev, n_frames=4):
+    """The glass with z squeezed into 72% of the box: channels percolate
+    and the surface pass has real work. Counted apart."""
+    from amof_tpu_torch.pore import BatchedPore
+
+    reset_launches()
+    slab = pore_batch_of(batch, n_frames, squeeze=0.72)
+    records, _ = BatchedPore(**PORE).run(slab, device=dev)
+    side = read_launches()
+    for r in records:
+        check(r["ASA_A^2"] > 0 and r["AV_A^3"] > 0,
+              f"void slab: ASA {r['ASA_A^2']} AV {r['AV_A^3']}")
+    say(f"void-slab side run ({n_frames} frames): ASA "
+        f"{records[0]['ASA_A^2']:.1f} A^2, NASA {records[0]['NASA_A^2']:.1f},"
+        f" AV {records[0]['AV_A^3']:.1f} A^3, NAV "
+        f"{records[0]['NAV_A^3']:.1f}; launches "
+        f"{ {k: side[k] for k in PORE_PATH} }")
+    return side
+
+
+def pore_cpu_parity(dev, n_atoms=2048, n_frames=2):
+    """Phase 5, pore: a 2048-atom glass (bench recipe, void slab) on the
+    card against the plain versions on the CPU: masks, labels, fits and
+    per-atom validity equal; records to rel 1e-5 (sums in another
+    order)."""
+    import numpy as np
+    import torch
+
+    from amof_tpu_torch.pore import BatchedPore
+    from amof_tpu_torch.pore import grid_kernel as gk
+    from amof_tpu_torch.pore import surface_kernel as sk
+
+    t0 = time.perf_counter()
+    small, _ = make_trajectory(n_frames, n_atoms, seed=3)
+    small = pore_batch_of(small, n_frames, squeeze=0.72)
+    bp = BatchedPore(**PORE)
+    _, _, meta = bp.prepare(small, device="cpu")
+    cp, sp = meta["col_plan"], meta["surf_plan"]
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        frac, cell, inv, radii, dirs, pts = pore_frame_inputs(small, meta, d)
+        m = sk.void_masks_points(frac, cell, radii, cp["grid"], 1.2, 1.2,
+                                 cp["nbx"], cp["nby"], cp["window"], pts)
+        cls = gk.void_classification_mask(m[1])
+        lab = gk.label_components(m[1], periodic=False)
+        sv = sk.surface_valid_columns(
+            frac, cell, radii, 1.2, dirs, cp["grid"], sp["nbx"], sp["nby"],
+            sp["window"], sp["chunk"], sp["col_cap"], cand_mask=m[1],
+            inv_cell=inv)
+        outs[d.type] = [t.cpu() for t in (*m, lab, *cls, *sv)]
+    for i, (g, c) in enumerate(zip(outs["cuda"], outs["cpu"])):
+        check(torch.equal(g, c), f"pore card != CPU (output {i}: "
+              f"{int((g != c).sum())} items differ)")
+    gpu, _ = bp.run(small, device=dev)
+    cpu, _ = bp.run(small, device="cpu")
+    worst = 0.0
+    for a, b in zip(gpu, cpu):
+        for key in a:
+            rel = abs(a[key] - b[key]) / max(abs(b[key]), 1e-30)
+            worst = max(worst, rel)
+            check(rel <= 1e-5, f"pore {key}: card {a[key]} vs CPU {b[key]}")
+    say(f"pore card == CPU plain on a {n_atoms}-atom void-slab glass: masks,"
+        f" fits, labels, classification, per-atom validity and indices "
+        f"equal; records max rel diff {worst:.2e} "
+        f"(ASA {gpu[0]['ASA_A^2']:.1f}, AV {gpu[0]['AV_A^3']:.1f}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
+# stages of the pore step timed by pore_stage_split: (module, attribute,
+# label); "frame (all)" contains the others, "surface pass" contains the
+# layout, the prefilter and kernel #6
+PORE_STAGES = [
+    ("amof_tpu_torch.pore.batch", "_frame", "frame (all)"),
+    ("amof_tpu_torch.pore.surface_kernel", "void_masks_points",
+     "masks (#5)"),
+    ("amof_tpu_torch.pore.grid_kernel", "void_classification_mask",
+     "classification (2x #7)"),
+    ("amof_tpu_torch.pore.batch", "_volume", "MC volume"),
+    ("amof_tpu_torch.pore.surface_kernel", "surface_valid_columns",
+     "surface pass (all)"),
+    ("amof_tpu_torch.pore.grid_kernel", "surface_candidate_mask",
+     "candidate prefilter"),
+    ("amof_tpu_torch.pore.surface_kernel", "_launch_surface",
+     "surface kernel (#6)"),
+    ("amof_tpu_torch.pore.batch", "_surface_sums", "classify + sums"),
+]
+
+
+def stage_table(stages, run, n, title):
+    """Host ms/frame of each stage of ``run()``, each call bracketed by
+    torch.cuda.synchronize() (which inflates the total)."""
+    import importlib
+
+    import torch
+
+    spent = {label: 0.0 for _, _, label in stages}
+    calls = dict.fromkeys(spent, 0)
+    saved = []
+
+    def timed(fn, label):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                spent[label] += time.perf_counter() - t0
+                calls[label] += 1
+        return wrapper
+
+    for mod_name, attr, label in stages:
+        mod = importlib.import_module(mod_name)
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, timed(getattr(mod, attr), label))
+    try:
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step_fn(*args)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=40)
+    finally:
+        for mod, attr, fn in reversed(saved):
+            setattr(mod, attr, fn)
+    lines = [f"{title}, {n} frames, synced stages: wall {wall:.3f} s = "
+             f"{1e3 * wall / n:.3f} ms/frame"]
+    lines += [f"  {label:<24s} {1e3 * spent[label] / n:8.3f} ms/frame  "
+              f"calls {calls[label]}" for _, _, label in stages]
+    return lines
+
+
+def pore_times(pb, dev, card):
+    """Phase 6, pore: prepare time and ms/frame of the step (host clock
+    around a synchronize; best of two runs after prepare); phase 7: the
+    stage split. Returns (ms_per_frame, prepare_s, first-pass misses)."""
+    import torch
+
+    from amof_tpu_torch.pore import BatchedPore
+
+    bp = BatchedPore(**PORE)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn, args, _ = bp.prepare(pb, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        runs.append((t1 - t0, time.perf_counter() - t1))
+    prep = min(r[0] for r in runs)
+    step = min(r[1] for r in runs)
+    misses = int(out[4].sum())
+    ms = 1e3 * step / pb.num_frames
+    say(f"pore step: {step:.3f} s for {pb.num_frames} frames = {ms:.3f} "
+        f"ms/frame ({pb.num_frames / step:.1f} frames/s; prepare "
+        f"{prep:.3f} s; runs {runs}; first-pass misses {misses}) on {card}")
+    profiled(lambda: step_fn(*args), pb.num_frames, "pore profile",
+             "chip_smoke_pore_profile.txt")
+    lines = stage_table(PORE_STAGES, lambda: step_fn(*args), pb.num_frames,
+                        "pore stage split")
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as fh:
-        fh.write(table)
-    # device-side events only (kernels, memcpy, memset): the aten rows
-    # repeat their kernels' time as "self CUDA"
-    evs = [e for e in prof.key_averages()
-           if getattr(e, "device_type", None) == DeviceType.CUDA]
-    if not evs:
-        say("profile: the profiler reported no device events (busy share "
-            "not measured)")
-        return
-    busy = sum(e.self_device_time_total for e in evs) / 1e3  # ms
-    share = busy / (wall * 1e3)
-    say(f"profile ({n_frames} frames, no MSD): wall {wall * 1e3:.1f} ms, "
-        f"device busy {busy:.1f} ms ({100 * share:.0f}%), idle "
-        f"{100 * (1 - share):.0f}%")
-    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
-        say(f"  {e.self_device_time_total / 1e3 / n_frames:8.3f} ms/frame "
-            f"{e.count / n_frames:6.1f}/frame  {e.key[:70]}")
+    with open(os.path.join(OUT_DIR, "chip_smoke_pore_stages.txt"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    for line in lines:
+        say(line)
+    return ms, prep, misses
 
 
 def main():
@@ -493,7 +932,17 @@ def main():
 
     # 3. kernels vs plain
     checks = kernel_checks(args, meta, batch, dev)
+    work = fused_work(args, meta, batch)
     del step_fn, args
+    from amof_tpu_torch.pore import BatchedPore
+
+    pb = pore_batch_of(batch, PORE_FRAMES)
+    _, _, pmeta = BatchedPore(**PORE).prepare(pb, device=dev)
+    say(f"pore plan: grid {pmeta['grid']}, masks {pmeta['col_plan']}, "
+        f"surface {pmeta['surf_plan']}, K {pmeta['k']}")
+    pchecks, pwork = pore_kernel_checks(pb, pmeta, dev)
+    checks.update(pchecks)
+    work.update(pwork)
 
     # 4. the main path, counted on its own
     reset_launches()
@@ -529,8 +978,14 @@ def main():
     check(side["window_table"] > 0, "crowded frame did not rerun")
     check_outputs(out_c, meta, 4)
 
+    # 4, pore: the batched pore step, counted on its own, and a void-slab
+    # side run counted apart
+    _, _, plaunch = pore_main(pb, dev)
+    pside = pore_side_run(batch, dev)
+
     # 5. correctness against the plain path on the CPU
     cpu_parity(batch)
+    pore_cpu_parity(dev)
 
     # 6. times
     runs = []
@@ -554,18 +1009,32 @@ def main():
             f"({pms / ms:.1f}x) on {card}")
     profile_step(batch, dev)
 
+    # 6 and 7, pore: step time, prepare time, stage split
+    pore_ms, pore_prep, pore_miss = pore_times(pb, dev, card)
+
     # 7. stage split
     stage_split(fa, batch, dev)
 
     kernels = []
     for name, src, replaces in KERNELS:
         err, ms, pms = checks[name]
+        pore = name in PORE_PATH
+        bound_ms, bound_by = bound(*work[name])
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        "on_main_path": name in MAIN_PATH,
-                        "side_launches": side[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": pms})
+                        "replaces": replaces,
+                        "launches": (plaunch if pore else launches)[name],
+                        "on_main_path": name in MAIN_PATH or pore,
+                        "side_launches": (pside if pore else side)[name],
+                        "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
+        say(f"bound {name}: {bound_ms:.4f} ms ({bound_by}; "
+            f"{work[name][0]:.3e} B, {work[name][1]:.3e} f32 ops) vs kernel "
+            f"{ms:.3f} ms on {card}")
     print(json.dumps({"kernels": kernels, "fused_frames_per_s": fps,
+                      "pore_ms_per_frame": pore_ms,
+                      "pore_prepare_s": pore_prep,
+                      "pore_first_pass_misses": pore_miss,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -125,3 +125,148 @@ def test_wrappers_count_launches_and_check_inputs(cuda):
         rdf_kernel.rdf_counts(p.double(), c, s, 0.05, 2, 100)
     with pytest.raises(ValueError):
         rdf_kernel.rdf_counts(p, c, s.long(), 0.05, 2, 100)
+
+
+# --------------------------------------------------------------------------
+# Pore kernels (#5 void masks, #6 surface blockers, #7 flood fill)
+# --------------------------------------------------------------------------
+
+def pore_system(n, box, seed, triclinic=False, squeeze=0.72):
+    """Random atoms with a void slab (z squeezed) in a cubic or sheared
+    cell: (frac f32[n, 3], cell f32[3, 3], radii f32[n])."""
+    rng = np.random.default_rng(seed)
+    frac = rng.random((n, 3)).astype(np.float32)
+    frac[:, 2] *= squeeze
+    cell = np.eye(3, dtype=np.float32) * box
+    if triclinic:
+        cell[1, 0], cell[2, 0], cell[2, 1] = 1.4, -0.9, 1.1
+    radii = rng.uniform(1.1, 1.8, n).astype(np.float32)
+    return frac, cell, radii
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("triclinic", [False, True])
+@pytest.mark.parametrize("probe,chan,window", [(1.2, 1.2, 256),
+                                               (1.0, 1.3, 256),
+                                               (1.2, 1.2, 40)])
+def test_void_masks_kernel_matches_plain(cuda, triclinic, probe, chan,
+                                         window):
+    """Kernel #5 vs its plain version: masks, point fits and the missed
+    flag (window 40 overflows: both read the same truncated runs)."""
+    from amof_tpu_torch.pore import grid_kernel, surface_kernel
+
+    frac, cell, radii = pore_system(600, 20.0, 7, triclinic)
+    pts = np.random.default_rng(8).random((4000, 3)).astype(np.float32)
+    pts_tiled, _ = grid_kernel.assign_points_to_xytiles(
+        pts, {"nbx": 5, "nby": 5})
+    f, c, r, p = on(cuda, frac, cell, radii, pts_tiled)
+    args = (f, c, r, (40, 40, 36), probe, chan, 5, 5, window)
+    got = surface_kernel.void_masks_points(*args, pts_tiled=p)
+    ref = grid_kernel.void_masks_columns(*args, pts_tiled=p)
+    assert bool(ref[3]) == (window == 40)
+    assert 0 < int(ref[1].sum()) < ref[1].numel()
+    assert_same(got, ref)
+    got = surface_kernel.void_masks_points(*args)
+    assert got[2] is None
+    assert_same(got[:2], ref[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("triclinic", [False, True])
+@pytest.mark.parametrize("k,window,col_cap,missed", [(8, 640, 192, False),
+                                                     (28, 640, 192, False),
+                                                     (8, 60, 64, True)])
+def test_surface_kernel_matches_plain(cuda, triclinic, k, window, col_cap,
+                                      missed):
+    """Kernel #6 vs its plain version, with and without the candidate
+    prefilter, including too-small windows and column capacities."""
+    from amof_tpu_torch.pore import grid_kernel, surface_kernel
+
+    frac, cell, radii = pore_system(900, 22.0, 9, triclinic)
+    grid = (24, 24, 24)
+    dirs = grid_kernel.fibonacci_sphere(k)
+    cand = np.random.default_rng(3).random(grid) < 0.1
+    f, c, r, d, m = on(cuda, frac, cell, radii, dirs, cand)
+    for cand_mask in (None, m):
+        args = (f, c, r, 1.2, d, grid, 3, 3, window, 64, col_cap)
+        got = surface_kernel.surface_valid_columns(*args,
+                                                   cand_mask=cand_mask)
+        ref = grid_kernel.surface_valid_columns(*args, cand_mask=cand_mask)
+        assert bool(ref[5]) == missed
+        assert int(ref[0].sum()) > 0
+        assert_same(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 12, 20), (9, 13, 7), (1, 33, 64),
+                                   (40, 40, 40)])
+@pytest.mark.parametrize("frac", [0.3, 0.6])
+@pytest.mark.parametrize("periodic", [False, True])
+def test_flood_fill_kernel_matches_plain(cuda, shape, frac, periodic):
+    """Kernel #7 vs the plain sweeps: linear-index init (component
+    labels) and {1, 0, -1} init (channel propagation)."""
+    from amof_tpu_torch.pore import grid_kernel
+
+    rng = np.random.default_rng(sum(shape))
+    mask = rng.random(shape) < frac
+    lin = np.where(mask, np.arange(mask.size).reshape(shape), -1)
+    seeds = mask & (rng.random(shape) < 0.01)
+    tern = np.where(seeds, 1, np.where(mask, 0, -1))
+    for init in (lin, tern):
+        (t,) = on(cuda, init.astype(np.int32))
+        got = grid_kernel.propagate_fixpoint(t, periodic)
+        ref = grid_kernel.propagate_fixpoint_plain(t, periodic)
+        assert_same([got], [ref])
+
+
+@pytest.mark.cuda
+def test_pore_wrappers_count_launches(cuda):
+    from amof_tpu_torch.pore import grid_kernel, surface_kernel
+
+    frac, cell, radii = pore_system(300, 16.0, 2)
+    f, c, r = on(cuda, frac, cell, radii)
+    before = dict(surface_kernel.LAUNCHES), dict(grid_kernel.LAUNCHES)
+    m = surface_kernel.void_masks_points(f, c, r, (16, 16, 16), 1.2, 1.2,
+                                         4, 4, 256)[1]
+    grid_kernel.void_classification_mask(m)
+    grid_kernel.void_masks_columns(f, c, r, (16, 16, 16), 1.2, 1.2, 4, 4, 256)
+    assert surface_kernel.LAUNCHES["void_masks_points"] == \
+        before[0]["void_masks_points"] + 1
+    assert grid_kernel.LAUNCHES["flood_fill"] == before[1]["flood_fill"] + 2
+    with pytest.raises(ValueError):
+        surface_kernel.void_masks_points(f.double(), c, r, (16, 16, 16),
+                                         1.2, 1.2, 4, 4, 256)
+    with pytest.raises(ValueError):
+        grid_kernel.propagate_fixpoint(m.to(torch.int64), True)
+
+
+@pytest.mark.cuda
+def test_pore_kernels_multi_pass_staging(cuda):
+    """More candidate rows than one shared-memory pass holds (1024): the
+    kernels AND later passes into what the first wrote."""
+    from amof_tpu_torch.pore import grid_kernel, surface_kernel
+
+    frac, cell, radii = pore_system(6000, 20.0, 12, squeeze=1.0)
+    radii = (radii * 0.5).astype(np.float32)
+    pts = np.random.default_rng(13).random((3000, 3)).astype(np.float32)
+    pts_tiled, _ = grid_kernel.assign_points_to_xytiles(
+        pts, {"nbx": 4, "nby": 4})
+    f, c, r, p = on(cuda, frac, cell, radii, pts_tiled)
+    args = (f, c, r, (32, 32, 32), 0.6, 0.5, 4, 4, 2048)
+    lay = grid_kernel.masks_layout(f, r, 4, 4, 2048)
+    assert int(lay.count.sum(dim=1).min()) > 1024
+    got = surface_kernel.void_masks_points(*args, pts_tiled=p)
+    ref = grid_kernel.void_masks_columns(*args, pts_tiled=p)
+    assert not bool(ref[3])
+    assert 0 < int(ref[0].sum()) < ref[0].numel()
+    assert_same(got, ref)
+
+    dirs = torch.from_numpy(grid_kernel.fibonacci_sphere(8)).to(cuda)
+    sv = (f, c, r, 0.5, dirs, (32, 32, 32), 3, 3, 4096, 64, 896)
+    got = surface_kernel.surface_valid_columns(*sv)
+    ref = grid_kernel.surface_valid_columns(*sv)
+    lay = grid_kernel.surface_layout(f, grid_kernel.host_inverse(c), r, 0.5,
+                                     dirs, (32, 32, 32), 3, 3, 4096, 896)
+    assert int(lay.b_count.sum(dim=1).min()) > 1024
+    assert not bool(ref[5]) and int(ref[0].sum()) > 0
+    assert_same(got, ref)

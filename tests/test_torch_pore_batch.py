@@ -1,0 +1,131 @@
+"""Parity of the port's ``BatchedPore`` (column path, run on the CPU with
+the kernels' plain versions) with ``amof_tpu``'s ``BatchedPore`` on its
+XLA engine (``surface_engine="xla"``, one-device mesh), on the same numpy
+trajectories, and the port's behaviour where it stops short of
+``amof_tpu``.
+
+Tolerance for the records: rel 1e-5, the bound the JAX package's own
+engine-parity test allows (``tests/test_surface_pallas.py``): per voxel,
+point and atom the two agree (see the mask, label and surface parity
+tests), but the sums run in another order (float64 over one row per atom
+in the port, float32 over padded slots in ``amof_tpu``).
+
+The systems are 2 frames of 1024 carbon atoms (vdW radius overridden to
+1.5 A) in a 32 A cell with a void slab: the smallest that takes the
+column plan (>= 4x4 mask columns, >= 3x3 surface columns with three
+windows below the atom count).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from amof_tpu.core.frames import FrameBatch as JaxFrameBatch
+from amof_tpu.parallel.mesh import analysis_mesh
+from amof_tpu.pore.batch import BatchedPore as JaxBatchedPore
+from amof_tpu_torch import FrameBatch
+from amof_tpu_torch.pore import BatchedPore
+
+torch.set_num_threads(2)
+
+KW = dict(resolution=1.0, num_samples=20000, radii={"C": 1.5})
+
+
+def slab_glass(n_frames=2, n=1024, box=32.0, seed=23, triclinic=False):
+    """Positions on a 1/32 A grid in a power-of-two cubic cell (exact
+    float32 arithmetic), or a sheared NPT pair (frame f scaled by
+    1 + f/16)."""
+    rng = np.random.default_rng(seed)
+    frac = rng.random((n_frames, n, 3))
+    frac[..., 2] *= 0.72
+    frac = np.round(frac * 1024) / 1024
+    base = np.eye(3) * box
+    if triclinic:
+        base[1, 0], base[2, 0], base[2, 1] = 2.0, -1.5, 1.75
+    cells = np.stack([base * (1 + f / 16 if triclinic else 1)
+                      for f in range(n_frames)]).astype(np.float32)
+    pos = np.einsum("fni,fij->fnj", frac, cells).astype(np.float32)
+    return (pos, cells, np.full(n, 6, np.int32),
+            np.arange(n_frames, dtype=np.int32))
+
+
+def run_port(arrays, **kw):
+    return BatchedPore(**{**KW, **kw}).run(FrameBatch(*arrays), device="cpu")
+
+
+def assert_records_close(got, ref):
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        assert set(a) == set(b)
+        for key in a:
+            assert a[key] == pytest.approx(b[key], rel=1e-5, abs=1e-6), key
+
+
+@pytest.mark.parametrize("vol_method,triclinic", [("mc", False),
+                                                  ("grid", False),
+                                                  ("mc", True)])
+def test_records_match_amof_tpu(vol_method, triclinic):
+    arrays = slab_glass(triclinic=triclinic)
+    ref, ref_meta = JaxBatchedPore(
+        surface_engine="xla", vol_method=vol_method, **KW
+    ).run(JaxFrameBatch(*arrays), mesh=analysis_mesh(1))
+    got, meta = run_port(arrays, vol_method=vol_method)
+    assert ref_meta["col_plan"] is not None
+    for key in ("grid", "col_plan", "surf_plan", "k", "frames_per_call",
+                "mass_amu"):
+        assert meta[key] == ref_meta[key], key
+    assert set(ref_meta) <= set(meta)
+    assert_records_close(got, ref)
+    assert all(r["ASA_A^2"] > 0 and r["AV_A^3"] > 0 for r in got)
+
+
+def test_mc_window_miss_retries_at_2x_and_4x():
+    """window_scale 0.25 misses; the 0.5x retry misses again; the 1x
+    retry covers, so the records equal a straight run bit for bit."""
+    arrays = slab_glass()
+    bp = BatchedPore(vol_method="mc", window_scale=0.25, **KW)
+    step_fn, args, _ = bp.prepare(FrameBatch(*arrays), device="cpu")
+    assert step_fn(*args)[4].all()
+    step_fn, args, _ = BatchedPore(
+        vol_method="mc", window_scale=0.5, **KW
+    ).prepare(FrameBatch(*arrays), device="cpu")
+    assert step_fn(*args)[4].all()
+    got, _ = bp.run(FrameBatch(*arrays), device="cpu")
+    ref, _ = run_port(arrays, vol_method="mc")
+    assert got == ref
+
+
+def test_miss_that_amof_tpu_recomputes_per_frame_raises():
+    """Grid mode hands a missed frame to ``zeopp.analyze_frame`` in
+    ``amof_tpu``, and so does mc mode past 4x windows: the port raises
+    and names the frames instead of returning numbers."""
+    arrays = slab_glass()
+    with pytest.raises(NotImplementedError, match=r"frames \[0, 1\]"):
+        run_port(arrays, vol_method="grid", window_scale=0.5)
+    # 600 atoms crowd one coarse column: beyond 4x its capacity
+    crowded = slab_glass(n_frames=1)
+    crowded[0][0, :600, :2] *= 0.15
+    with pytest.raises(NotImplementedError, match=r"frames \[0\]"):
+        run_port(crowded, vol_method="mc", window_scale=4.0)
+
+
+def test_off_the_column_plan_raises():
+    arrays = slab_glass()
+    with pytest.raises(NotImplementedError, match="grid="):
+        run_port(arrays, grid=(32, 32, 32))
+    with pytest.raises(NotImplementedError, match="window=None"):
+        run_port(arrays, window=None)
+    small = slab_glass(n=200, box=16.0)
+    with pytest.raises(NotImplementedError, match="too small"):
+        run_port(small)
+    with pytest.raises(NotImplementedError, match="winding"):
+        BatchedPore(winding="exact")
+    with pytest.raises(ValueError):
+        BatchedPore(vol_method="voodoo")
+
+
+def test_cuda_default_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        BatchedPore(**KW).run(FrameBatch(*slab_glass()))
