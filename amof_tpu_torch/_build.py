@@ -8,6 +8,12 @@ happens at first use, into ``amof_tpu_torch/_build/`` (ignored by git),
 under a name keyed by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one is reused.
 
+``build`` and ``library`` hold one module lock, so threads of one process
+(the warmup thread and the first launch, say) build once; object and
+temporary files carry the process and thread id, so processes that build
+at once never share a path. A failed build is remembered: every later
+``library()`` call raises the same error instead of building again.
+
 ``--fmad=false`` is deliberate: the kernels' integer outputs (histogram
 bins, cutoff tests, neighbour slots) must equal the plain PyTorch
 versions bit for bit, and eager PyTorch rounds every multiply and add
@@ -22,13 +28,14 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("rdf_hist.cu", "window_table.cu", "void_masks.cu",
-           "surface_columns.cu", "flood_fill.cu")
+           "surface_columns.cu", "flood_fill.cu", "warmup.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -59,9 +66,12 @@ _SIGNATURES = {
         _I, _F, _F, _I, _I, _I, _P, _P, _P, _P,
     ),
     "flood_fill_launch": (_P, _I, _I, _I, _I, _P, _P, _P),
+    "warmup_copy_launch": (_P, _P, _I, _P),
 }
 
+_lock = threading.RLock()
 _lib = None
+_error = None  # the exception of a failed library(), raised again
 build_seconds = None  # wall time of the last build (None: loaded as-is)
 
 
@@ -91,14 +101,20 @@ def build() -> pathlib.Path:
     every source compiles in its own nvcc process, all at once, then one
     link. The compiler's register/shared-memory report goes to
     ``_build/ptxas.log``."""
+    with _lock:
+        return _build()
+
+
+def _build() -> pathlib.Path:
     global build_seconds
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{pathlib.Path(s).stem}.o" for s in SOURCES]
+    who = f"{os.getpid()}.{threading.get_ident()}"
+    objs = [BUILD_DIR / f"{out.stem}.{who}.{pathlib.Path(s).stem}.o"
+            for s in SOURCES]
     t0 = time.perf_counter()
     procs = [
         subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
@@ -113,7 +129,7 @@ def build() -> pathlib.Path:
         logs.append(f"== {src}\n{so}{se}")
         if proc.returncode != 0:
             failed.append(f"{src} ({proc.returncode}):\n{se[-3000:]}")
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{who}.tmp")
     if not failed:
         link = subprocess.run(
             [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
@@ -132,17 +148,29 @@ def build() -> pathlib.Path:
     return out
 
 
+def _load(path: pathlib.Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    """The loaded kernel library (built on first call; a failed build or
+    load raises again on every later call)."""
+    global _lib, _error
+    with _lock:
+        if _error is not None:
+            raise _error
+        if _lib is None:
+            try:
+                _lib = _load(build())
+            except Exception as exc:
+                _error = exc
+                raise
+        return _lib
 
 
 def check(err: int, what: str) -> None:

@@ -66,3 +66,20 @@ def remove_com_drift(positions, masses):
     com = torch.sum(positions * w, dim=1, keepdim=True)
     return positions - com
 
+
+
+def windowed_msd_atom_sums(x, origin_policy: str = "amof"):
+    """Sum over atoms and origins of |r_{k+m} - r_k|^2 for every m.
+    Returns f32[T]."""
+    return torch.sum(windowed_msd_atom_series(x, origin_policy), dim=1)
+
+
+def windowed_msd_all_m(x, origin_policy: str = "amof"):
+    """MSD(m) for every window m in [0, T): f32[T], averaged over origins
+    and atoms. x: f32[T, A, 3] unwrapped (and COM-corrected) positions;
+    origin_policy 'amof' (reference estimator) or 'standard'."""
+    t_len, a, _ = x.shape
+    m = torch.arange(t_len, device=x.device)
+    msd = windowed_msd_atom_sums(x, origin_policy) / (a * (t_len - m))
+    msd[0] = 0.0  # MSD(0) is exactly 0; kill FFT round-off
+    return msd

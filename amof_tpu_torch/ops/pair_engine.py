@@ -20,11 +20,18 @@ expression order, and each op rounds on its own, so the CUDA kernels
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 WRAP_EPS = 1e-7
 HALF_EPS = float(np.float32(0.5 + WRAP_EPS))  # the f32 constant the wrap adds
+
+
+def _pick_chunk(n: int, target: int = 256) -> int:
+    """Largest chunk <= target dividing the padded atom count."""
+    return math.gcd(n, target) if n % target else target
 
 
 def pad_atoms(positions: np.ndarray, species_idx: np.ndarray, multiple: int = 256):
@@ -118,6 +125,29 @@ def frame_rdf_counts(positions, cell, species_idx, dr: float, n_species: int,
     fn = rdf_kernel.rdf_counts_blocked if blocked else rdf_kernel.rdf_counts
     return fn(positions, cell, species_idx, dr, n_species, bins,
               ortho=ortho, inv_cell=inv_cell)
+
+
+def trajectory_rdf_counts(positions, cells, species_idx, dr: float,
+                          n_species: int, bins: int, blocked: bool = False,
+                          ortho: bool = False, frame_weights=None,
+                          inv_cells=None):
+    """(Optionally weighted) RDF counts summed over frames: float64
+    [S, S, bins]. positions [F, N, 3], cells [F, 3, 3], frame_weights
+    [F] (e.g. the volume). Each frame's weighted histogram is formed in
+    float32, as in the JAX package, and summed in float64 on the device
+    (its place for ``ops/accum.py``'s Neumaier carries)."""
+    if inv_cells is None:
+        inv_cells = inverse_cell(cells)
+    total = torch.zeros((n_species, n_species, bins), dtype=torch.float64,
+                        device=positions.device)
+    for f in range(positions.shape[0]):
+        counts = frame_rdf_counts(positions[f], cells[f], species_idx, dr,
+                                  n_species, bins, blocked=blocked,
+                                  ortho=ortho, inv_cell=inv_cells[f])
+        if frame_weights is not None:
+            counts = frame_weights[f] * counts
+        total += counts.to(torch.float64)
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -291,3 +321,21 @@ def frame_neighbor_payload_table_sorted(positions, cell, species_idx,
     if emit_missed:
         out = out + (missed,)
     return out
+
+
+CN_WINDOW_SLOTS = 32  # table slots per center of the windowed CN pass
+
+
+def frame_cn_counts_windowed(positions, cell, species_idx, cutoff_matrix,
+                             n_species: int, chunk: int = 256,
+                             window: int = 1024, inv_cell=None):
+    """CN counts from the sorted-window table (kernel #4): O(N*W) instead
+    of the O(N^2) ``frame_cn_counts``. Returns (cn f32[S, S], missed
+    bool[]). ``missed`` covers the window's coverage check and a center
+    with more than ``CN_WINDOW_SLOTS`` neighbours (the table then holds
+    too few to count); either way the caller recomputes the frame with
+    the full pass, so the counts it keeps are exact."""
+    out = frame_neighbor_payload_table_sorted(
+        positions, cell, species_idx, cutoff_matrix, CN_WINDOW_SLOTS, chunk,
+        window, emit_cn=True, inv_cell=inv_cell)
+    return out[6], out[3]

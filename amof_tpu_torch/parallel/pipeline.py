@@ -30,11 +30,12 @@ import numpy as np
 import torch
 
 from amof_tpu_torch.bad import _enumerate_specs
-from amof_tpu_torch.cn import _cutoff_matrix_for_species
+from amof_tpu_torch.cn import _cutoff_matrix_for_species, sorted_window
 from amof_tpu_torch.core.frames import as_frame_batch
 from amof_tpu_torch.data import elements
 from amof_tpu_torch.ops import bad_kernel, msd_kernel, pair_engine, rdf_kernel
 from amof_tpu_torch.rdf import _species_table
+from amof_tpu_torch.warmup import after_warmup, warmup
 
 logger = logging.getLogger(__name__)
 
@@ -244,6 +245,7 @@ class FusedAnalysis:
         from amof_tpu_torch.ops import slab_table
 
         dev = resolve_device(device)
+        handle = warmup(device=dev)  # build + context overlap the layout
         batch = as_frame_batch(batch)
         species = np.asarray(batch.species)
         unique, z_to_idx = _species_table(species)
@@ -296,17 +298,10 @@ class FusedAnalysis:
         n_pad = positions.shape[1]
         bad_window = self.bad_window
         if bad_window == "auto":
-            rc = float(cutoff_matrix.max())
-            # slab width along fractional axis 0: V / |b x c| (min frame)
-            bxc = np.cross(cells[:, 1].astype(np.float64),
-                           cells[:, 2].astype(np.float64))
-            v = np.abs(np.einsum("fi,fi->f", cells[:, 0].astype(np.float64),
-                                 bxc))
-            w0 = float((v / np.linalg.norm(bxc, axis=1)).min())
             # pad rows carry uniformly-spread sort keys, so the window
             # scales with the PADDED atom count
-            est = 1.6 * n_pad * 2.0 * rc / max(w0, 1e-9) + 64
-            bad_window = int(-(-est // 128) * 128)
+            bad_window = sorted_window(cells, float(cutoff_matrix.max()),
+                                       n_pad, self.chunk)
         if bad_window is not None and self.chunk + 2 * bad_window >= n_pad:
             bad_window = None
 
@@ -350,7 +345,7 @@ class FusedAnalysis:
             step_fn = self._make_chunked_step(cfg, meta, a_blk)
         else:
             step_fn = self._make_step(cfg, n_pad)
-        return step_fn, args, meta
+        return after_warmup(handle, step_fn), args, meta
 
     def _finish(self, a: StepArgs, sums: _Sums, n_species: int, a_blk: int):
         out = {

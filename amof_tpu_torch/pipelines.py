@@ -19,10 +19,9 @@ import amof_tpu_torch.msd as ammsd
 import amof_tpu_torch.rdf as amrdf
 from amof_tpu_torch.core.frames import as_frame_batch
 from amof_tpu_torch.core.step import construct_step
-from amof_tpu_torch.data import elements
 from amof_tpu_torch.ops import bad_kernel
 from amof_tpu_torch.parallel.pipeline import FusedAnalysis
-from amof_tpu_torch.rdf import shell_volumes
+from amof_tpu_torch.rdf import _species_table
 
 
 def analyze(
@@ -55,78 +54,37 @@ def analyze(
     out, meta = fa.run(batch, device=device)
     unique = list(meta["unique"])
     n_frames = batch.num_frames
-    n_atoms = batch.num_atoms
     species = np.asarray(batch.species)
     step = construct_step(
         delta_Step=delta_Step, first_frame=first_frame,
         number_of_frames=n_frames,
     )
 
-    # ---- RDF (normalization identical to amof_tpu.rdf.Rdf) --------------
+    # ---- RDF, CN, BAD: the columns of the individual classes ---------------
     rdf_obj = amrdf.Rdf()
-    bins = meta["bins"]
-    r = np.arange(bins) * dr
-    counts = np.asarray(out["rdf_counts"], dtype=np.float64)
-    v_shell = shell_volumes(bins, dr)
-    n_per_species = np.array(
-        [(species == z).sum() for z in unique], dtype=np.float64
-    )
-    data = pd.DataFrame({"r": r})
-    data["X-X"] = counts.sum(axis=(0, 1)) / (
-        n_frames * n_atoms * n_atoms * v_shell
-    )
-    partial = {}
-    for i, za in enumerate(unique):
-        for j, zb in enumerate(unique):
-            name = f"{elements.symbol_of(za)}-{elements.symbol_of(zb)}"
-            g = counts[i, j] / (n_frames * n_per_species[i] * n_atoms * v_shell)
-            partial[(i, j)] = g
-            data[name] = g
-    for i, za in enumerate(unique):
-        data[f"{elements.symbol_of(za)}-X"] = sum(
-            partial[(i, j)] for j in range(len(unique))
-        )
-    rdf_obj.data = data
-
-    # ---- CN ---------------------------------------------------------------
+    rdf_obj.data = pd.DataFrame(amrdf.rdf_table(
+        out["rdf_counts"], species, unique, n_frames, dr, meta["bins"]))
     cn_obj = amcn.CoordinationNumber()
-    cn_counts = np.asarray(out["cn_counts"], dtype=np.float64)
-    cn_data = {"Step": step}
-    for nb_set in nb_set_and_cutoff:
-        a, b = (elements.atomic_numbers[s] for s in nb_set.split("-"))
-        ia, ib = unique.index(a), unique.index(b)
-        with np.errstate(invalid="ignore"):
-            cn_data[nb_set] = cn_counts[:, ia, ib] / n_per_species[ia]
-    cn_obj.data = pd.DataFrame(cn_data)
-
-    # ---- BAD ----------------------------------------------------------------
+    _, z_to_idx = _species_table(species)
+    cn_obj.data = pd.DataFrame(amcn.cn_table(
+        out["cn_counts"], species, unique, z_to_idx, nb_set_and_cutoff, step))
     bad_obj = ambad.Bad()
     bins_ref = int(180 // dtheta)
     theta = np.arange(bins_ref + 1) * dtheta + dtheta / 2
     conc = np.asarray(out["bad_concrete"], dtype=np.float64)
     center_any = np.asarray(out["bad_center_any"], dtype=np.float64)
-    bad_data = pd.DataFrame({"theta": theta})
-    for spec, name in zip(meta["bad_specs"], meta["bad_names"]):
-        spec_counts = bad_kernel.select_spec_counts(conc, center_any, spec)
-        angle_counts = spec_counts.sum(axis=0)  # over the cn axis
-        total = angle_counts.sum()
-        if total > 0:
-            bad_data[name] = angle_counts / (total * dtheta)
-    bad_obj.data = bad_data
+    counts = [bad_kernel.select_spec_counts(conc, center_any, spec)
+              for spec in meta["bad_specs"]]
+    bad_obj.data = pd.DataFrame(
+        ambad.bad_table(counts, meta["bad_names"], theta, dtheta))
 
     # ---- MSD (reference window construction, amof/msd.py:174-182) --------
     msd_obj = ammsd.WindowMsd()
-    half_time = (n_frames // 2) * timestep
-    if max_time == "half" or max_time > half_time:
-        max_time = half_time
-    delta_m = max(1, delta_time // timestep)
-    window = np.arange(0, max_time // timestep, delta_m)
-    msd_sp = np.asarray(out["msd_species"], dtype=np.float64)
-    msd_all = np.asarray(out["msd"], dtype=np.float64)
-    msd_data = pd.DataFrame({"Time": timestep * window})
-    for i, z in enumerate(unique):
-        msd_data[elements.symbol_of(z)] = msd_sp[window, i]
-    msd_data["X"] = msd_all[window]
-    msd_obj.data = msd_data
+    window, time = ammsd.msd_windows(n_frames, delta_time, max_time,
+                                     timestep, clamp=True)
+    msd_obj.data = pd.DataFrame(ammsd.msd_table(
+        np.asarray(out["msd"], dtype=np.float64),
+        np.asarray(out["msd_species"], dtype=np.float64), unique, window,
+        time))
 
     return {"rdf": rdf_obj, "cn": cn_obj, "bad": bad_obj, "msd": msd_obj}

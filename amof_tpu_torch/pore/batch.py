@@ -42,6 +42,7 @@ from amof_tpu_torch.pore.zeopp import (
     DEFAULT_PROBE_RADIUS,
     _grid_dims,
 )
+from amof_tpu_torch.warmup import after_warmup, warmup
 
 logger = logging.getLogger(__name__)
 
@@ -222,6 +223,7 @@ class BatchedPore:
         meta). ``step_fn(*args)`` returns (asa, nasa, av, nav, missed),
         numpy arrays over frames."""
         dev = resolve_device(device)
+        handle = warmup(device=dev)  # build + context overlap the plans
         batch = as_frame_batch(batch)
         cells = np.asarray(batch.cell, np.float64)
         rad_table = elements.vdw_radius_array(overrides=self.radii)
@@ -286,7 +288,7 @@ class BatchedPore:
             "volumes": volumes, "dist_window": None, "surf_window": None,
             "dist2": None,
         }
-        return step_fn, args, meta
+        return after_warmup(handle, step_fn), args, meta
 
     def run(self, batch, device="cuda"):
         """Returns (records, meta): one dict of Zeo++ -sa/-vol output

@@ -52,12 +52,19 @@ def test_package_has_the_slice_modules():
                  "amof_tpu_torch.pore.zeopp",
                  "amof_tpu_torch.pore.grid_kernel",
                  "amof_tpu_torch.pore.surface_kernel",
-                 "amof_tpu_torch.pore.batch"):
+                 "amof_tpu_torch.pore.batch",
+                 "amof_tpu_torch.pore.core",
+                 "amof_tpu_torch.rdf",
+                 "amof_tpu_torch.cn",
+                 "amof_tpu_torch.bad",
+                 "amof_tpu_torch.msd",
+                 "amof_tpu_torch.labeled",
+                 "amof_tpu_torch.warmup"):
         assert name in MODULES
     from amof_tpu_torch import _build
 
     for src in ("rdf_hist.cu", "window_table.cu", "void_masks.cu",
-                "surface_columns.cu", "flood_fill.cu"):
+                "surface_columns.cu", "flood_fill.cu", "warmup.cu"):
         assert (PKG / "csrc" / src).exists()
         assert src in _build.SOURCES
 

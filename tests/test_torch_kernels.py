@@ -127,6 +127,24 @@ def test_wrappers_count_launches_and_check_inputs(cuda):
         rdf_kernel.rdf_counts(p, c, s.long(), 0.05, 2, 100)
 
 
+@pytest.mark.cuda
+def test_warmup_copy_matches_copy(cuda):
+    """Kernel #9 vs ``dst.copy_(src)``, and the launch count."""
+    import importlib
+
+    wmod = importlib.import_module("amof_tpu_torch.warmup")
+    src = torch.from_numpy(np.random.default_rng(6).normal(
+        size=wmod.SHAPE).astype(np.float32)).to(cuda)
+    before = wmod.LAUNCHES["warmup_copy"]
+    got = wmod.warmup_copy(src)
+    assert wmod.LAUNCHES["warmup_copy"] == before + 1
+    assert_same([got], [wmod.warmup_copy_plain(src)])
+    with pytest.raises(ValueError):
+        wmod.warmup_copy(src.double())
+    with pytest.raises(ValueError):  # contiguous but not 16-byte aligned
+        wmod.warmup_copy(src.flatten()[1:1 + 512])
+
+
 # --------------------------------------------------------------------------
 # Pore kernels (#5 void masks, #6 surface blockers, #7 flood fill)
 # --------------------------------------------------------------------------

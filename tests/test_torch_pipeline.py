@@ -226,6 +226,25 @@ def test_analyze_dataframes_match_jax(traj, tmp_path):
                                   got["rdf"].data.to_numpy())
 
 
+def test_analyze_clamps_delta_time_below_timestep(traj):
+    """Where WindowMsd raises, ``analyze`` steps the MSD windows by one
+    frame, as ``amof_tpu``'s does."""
+    from amof_tpu import pipelines as jax_pipelines
+    from amof_tpu_torch import pipelines
+
+    pos, cells, species = traj
+    batch, jb = _batches(pos[:4], cells[:4], species)
+    kw = dict(dr=0.05, dtheta=1.0, chunk=128, delta_time=1, timestep=2)
+    ref = jax_pipelines.analyze(jb, CUTOFFS, mesh=analysis_mesh(1),
+                                method="scatter", **kw)
+    got = pipelines.analyze(batch, CUTOFFS, device="cpu", **kw)
+    a, b = got["msd"].data, ref["msd"].data
+    assert list(a.columns) == list(b.columns)
+    np.testing.assert_array_equal(a["Time"], [0, 2])
+    np.testing.assert_allclose(a.to_numpy(), b.to_numpy(), rtol=1e-4,
+                               atol=msd_atol(pos[:4]))
+
+
 def test_cuda_device_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
