@@ -8,11 +8,13 @@ happens at first use, into ``amof_tpu_torch/_build/`` (ignored by git),
 under a name keyed by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one is reused.
 
-``build`` and ``library`` hold one module lock, so threads of one process
-(the warmup thread and the first launch, say) build once; object and
-temporary files carry the process and thread id, so processes that build
-at once never share a path. A failed build is remembered: every later
-``library()`` call raises the same error instead of building again.
+``build`` and the first ``library`` call hold one module lock, so threads
+of one process (the warmup thread and the first launch, say) build once;
+once the library is loaded, ``library()`` returns it without the lock.
+Object and temporary files carry the process and thread id, so processes
+that build at once never share a path. A failed build is remembered:
+every later ``library()`` call raises the same error instead of building
+again.
 
 ``--fmad=false`` is deliberate: the kernels' integer outputs (histogram
 bins, cutoff tests, neighbour slots) must equal the plain PyTorch
@@ -30,6 +32,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -58,7 +62,7 @@ _SIGNATURES = {
         _P,
     ),
     "void_masks_launch": (
-        _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _I,
+        _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _I,
         _P, _P, _P, _P,
     ),
     "surface_columns_launch": (
@@ -149,6 +153,9 @@ def _build() -> pathlib.Path:
 
 
 def _load(path: pathlib.Path) -> ctypes.CDLL:
+    """dlopen the library and look each C entry point up once: ``CDLL``
+    keeps the function object as an attribute, so ``lib.name`` is a plain
+    attribute read afterwards."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -159,8 +166,13 @@ def _load(path: pathlib.Path) -> ctypes.CDLL:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call; a failed build or
-    load raises again on every later call)."""
+    load raises again on every later call). Once loaded it is returned
+    without taking the lock: ``_lib`` is set once, after the load, and
+    never cleared."""
     global _lib, _error
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lock:
         if _error is not None:
             raise _error
@@ -185,7 +197,10 @@ def check(err: int, what: str) -> None:
         )
 
 
-def stream_ptr(device) -> int:
-    import torch
-
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_ptr(tensor) -> int:
+    """Raw pointer of the current stream of ``tensor``'s CUDA device,
+    queried on every launch: a caller may launch under
+    ``torch.cuda.stream(...)``, as the warmup does. ``torch.accelerator``
+    builds its ``torch.Stream`` in C++, which makes it the cheaper public
+    query (``torch.cuda.current_stream`` builds a Python object)."""
+    return torch.accelerator.current_stream(tensor.get_device()).native_handle

@@ -127,7 +127,7 @@ def window_table(pos_sorted, sp_sorted, cell, cutoff_matrix,
         pos_sorted.data_ptr(), sp_sorted.data_ptr(), cell.data_ptr(),
         inv_cell.data_ptr(), cut2.data_ptr(), n, n_species, max_neighbors,
         chunk, window, nbr_pos.data_ptr(), nbr_sp.data_ptr(), cnt.data_ptr(),
-        _build.stream_ptr(pos_sorted.device),
+        _build.stream_ptr(pos_sorted),
     )
     _build.check(err, "window_table")
     LAUNCHES["window_table"] += 1
@@ -220,7 +220,7 @@ def window_table_slab(centers, cand, starts, qbounds, cell, cutoff_matrix,
         qbounds.data_ptr(), cell.data_ptr(), inv_cell.data_ptr(),
         cut2.data_ptr(), m, m2, n_species, max_neighbors, chunk, window,
         nbr_pos.data_ptr(), nbr_sp.data_ptr(), cnt.data_ptr(),
-        _build.stream_ptr(dev),
+        _build.stream_ptr(centers),
     )
     _build.check(err, "window_table_slab")
     LAUNCHES["window_table_slab"] += 1

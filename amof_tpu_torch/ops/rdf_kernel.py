@@ -182,7 +182,7 @@ def _launch(name, mode, positions, cell, species_idx, dr, n_species, bins,
         positions.data_ptr(), species_idx.data_ptr(), cell.data_ptr(),
         inv_cell.data_ptr(), positions.shape[0], n_species, bins,
         float(np.float32(1.0 / dr)), mode, int(bool(ortho)),
-        out.data_ptr(), _build.stream_ptr(positions.device),
+        out.data_ptr(), _build.stream_ptr(positions),
     )
     _build.check(err, name)
     LAUNCHES[name] += 1

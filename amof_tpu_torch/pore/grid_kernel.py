@@ -13,7 +13,9 @@ Counterpart of the column path of ``amof_tpu/pore/grid_kernel.py``:
     ``surface_layout``;
   * the plain versions of kernels #5 and #6: ``void_masks_columns`` and
     ``surface_valid_columns`` (their CUDA wrappers live in
-    ``pore/surface_kernel.py``);
+    ``pore/surface_kernel.py``), and ``void_masks_z_window``, the plain
+    twin of #5's z-slab candidate cut, which the tests hold against the
+    full candidate set;
   * the connectivity chain ``label_components`` -> ``winding_seeds`` ->
     ``propagate_channel`` -> ``void_classification_mask``, all through
     ``propagate_fixpoint``: kernel #7 (``csrc/flood_fill.cu``, union-find
@@ -29,6 +31,7 @@ expression order; divisions by a count use a device tensor as divisor
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -99,7 +102,8 @@ def xycol_plan(cells, radii_max, dmax, grid_raw, n_atoms):
     when the cell is too small for >= 4x4 reach-wide columns (or three
     windows would cover every atom). Grid x/y dims are rounded so columns
     tile them exactly. The z-window fields (n_zc, wz, wzw, zmargin) are
-    kept for parity with ``amof_tpu``; the mask pass does not use them.
+    kept for parity with ``amof_tpu``; kernel #5 does not read them: it
+    cuts z into slabs of its own height (``VOID_SLAB`` voxels).
     """
     widths = _widths(cells)
     reach = float(dmax + radii_max)
@@ -267,6 +271,8 @@ class MaskLayout(NamedTuple):
     start: torch.Tensor    # i32 [T, 3]: first row of each run of a tile
     count: torch.Tensor    # i32 [T, 3]: rows of each run read (<= window)
     missed: torch.Tensor   # bool []: a run longer than ``window``
+    keys: torch.Tensor     # f32 [M]: sort keys, shifted column + fz
+    cstarts: torch.Tensor  # i64 [nbx * (nby + 2) + 1]: first row per column
 
 
 def masks_layout(frac_atoms, radii, nbx: int, nby: int,
@@ -279,7 +285,7 @@ def masks_layout(frac_atoms, radii, nbx: int, nby: int,
                            device=keys.device))
     c0 = _neighbourhood_columns(np.arange(nbx * nby), nbx, nby)
     st, cnt, missed = _runs(cstarts, c0, window)
-    return MaskLayout(payload, st, cnt, missed)
+    return MaskLayout(payload, st, cnt, missed, keys, cstarts)
 
 
 class SurfaceLayout(NamedTuple):
@@ -429,6 +435,87 @@ def void_masks_tiles_plain(lay: MaskLayout, cell, grid, nbx: int, nby: int,
         return g.permute(0, 2, 1, 3, 4).reshape(gx, gy, gz).contiguous()
 
     return to_grid(hi_t), to_grid(lo_t), fit
+
+
+# z voxels per slab of kernel #5 (``ZG`` in csrc/void_masks.cu)
+VOID_SLAB = 8
+_SIGMA = 2.0 ** -20
+
+
+def _z_cut_geometry(cell):
+    """(h_z, mu) in float64 from the f32 cell, in kernel #5's expression
+    order: the z lattice-plane spacing |c.(a x b)| / |a x b| and the reach
+    margin 0.05 A + 1e-3 (|a| + |b| + |c|)."""
+    c = [float(x) for x in cell.detach().cpu().reshape(-1)]
+    n0 = c[1] * c[5] - c[2] * c[4]
+    n1 = c[2] * c[3] - c[0] * c[5]
+    n2 = c[0] * c[4] - c[1] * c[3]
+    hz = abs(n0 * c[6] + n1 * c[7] + n2 * c[8]) / math.sqrt(
+        n0 * n0 + n1 * n1 + n2 * n2)
+    length = (math.sqrt(c[0] * c[0] + c[1] * c[1] + c[2] * c[2])
+              + math.sqrt(c[3] * c[3] + c[4] * c[4] + c[5] * c[5])
+              + math.sqrt(c[6] * c[6] + c[7] * c[7] + c[8] * c[8]))
+    return hz, 0.05 + 1e-3 * length
+
+
+def void_masks_z_window(lay: MaskLayout, cell, grid, nbx: int, nby: int,
+                        window: int, thr_hi: float):
+    """Plain twin of kernel #5's z cut, for tests (never on the card's
+    path): keep bool[T, n_slabs, 3 * window], the candidate rows (in
+    ``_gather_runs`` order) that the kernel stages for each (tile, slab of
+    ``VOID_SLAB`` z voxels). A row is kept iff it lies in its run, its key is
+    in one of its column's subranges [fl(c + lo), fl(c + hi)] around the
+    slab widened by the tile's largest reach, and its periodic fractional
+    distance to the slab is below (R + thr_hi + mu) / h_z + 2^-20 (the
+    exactness argument is in the kernel's header)."""
+    gz, slab = grid[2], VOID_SLAB
+    n_slabs = -(-gz // slab)
+    hz, mu = _z_cut_geometry(cell)
+    cut = hz > 0.0
+    inv_hz = float(np.float32(1.0 / hz)) if cut else math.inf
+    reach_add = float(np.float32(thr_hi + mu))
+    kmax = np.float32(nbx * (nby + 2))
+    ulp2 = 2.0 * float(np.spacing(kmax))
+    (_, _, fz, r), ok = _gather_runs(lay.payload, lay.start, lay.count,
+                                     window)
+    w_idx = torch.arange(window, device=fz.device)
+    rows = (lay.start[:, :, None] + w_idx).reshape(fz.shape[0], -1)
+    rows = torch.clamp(rows, max=lay.payload.shape[1] - 1).long()
+    col = (torch.searchsorted(lay.cstarts, rows, right=True) - 1).double()
+    key = lay.keys[rows]
+    rmax = torch.where(ok, r, torch.zeros_like(r)).amax(dim=1).double()
+    keep = torch.zeros((fz.shape[0], n_slabs, fz.shape[1]),
+                       dtype=torch.bool, device=fz.device)
+    for s in range(n_slabs):
+        z0 = s * slab
+        za = float(np.float32(z0) / np.float32(gz))
+        zb = float(np.float32(min(z0 + slab, gz)) / np.float32(gz))
+        ranges = [(torch.zeros_like(rmax), torch.ones_like(rmax))]
+        if cut:
+            w = ((rmax + thr_hi) + mu) / hz + _SIGMA + ulp2
+            lo_z, hi_z = za - w, zb + w
+            part = (hi_z - lo_z) < 1.0
+            zero, one = torch.zeros_like(w), torch.ones_like(w)
+            ranges = [
+                (torch.where(part, torch.clamp(lo_z, min=0.0), zero),
+                 torch.where(part, torch.clamp(hi_z, max=1.0), one)),
+                (torch.where(part & (lo_z < 0), lo_z + 1.0,
+                             torch.where(part & (hi_z > 1), zero, one)),
+                 torch.where(part & (lo_z < 0), one,
+                             torch.where(part & (hi_z > 1), hi_z - 1.0,
+                                         zero))),
+            ]
+        in_range = torch.zeros_like(ok)
+        for lo, hi in ranges:
+            k_lo = (col + lo[:, None]).float()
+            k_hi = (col + hi[:, None]).float()
+            in_range |= (lo <= hi)[:, None] & (key >= k_lo) & (key <= k_hi)
+        d = torch.where(fz < za, za - fz,
+                        torch.where(fz > zb, fz - zb, torch.zeros_like(fz)))
+        d = torch.minimum(d, torch.minimum(fz + 1.0 - zb, za + 1.0 - fz))
+        near = ~(d >= (r + reach_add) * inv_hz + _SIGMA)
+        keep[:, s] = ok & in_range & near
+    return keep
 
 
 def mask_thresholds(probe: float, chan: float):
@@ -705,7 +792,7 @@ def propagate_fixpoint(init, periodic: bool):
     out = torch.empty_like(init)
     err = _build.library().flood_fill_launch(
         init.data_ptr(), gx, gy, gz, int(bool(periodic)), parent.data_ptr(),
-        out.data_ptr(), _build.stream_ptr(init.device))
+        out.data_ptr(), _build.stream_ptr(init))
     _build.check(err, "flood_fill")
     LAUNCHES["flood_fill"] += 1
     return out

@@ -7,7 +7,10 @@ Counterpart of ``amof_tpu/pore/surface_kernel.py``:
   * ``void_masks_points`` replaces ``void_masks_points_pallas`` (kernel
     #5, ``csrc/void_masks.cu``): per xy tile, the probe and channel voxel
     masks ``d2 >= (R_j + thr)^2`` over the tile's three candidate runs,
-    and the MC point fits over the same candidates;
+    and the MC point fits over the same candidates; the kernel runs one
+    block per (tile, z slab) and skips the rows provably beyond z reach
+    of the slab (plain twin of that cut:
+    ``grid_kernel.void_masks_z_window``);
   * ``surface_valid_columns`` replaces ``surface_valid_columns_pallas``
     (kernel #6, ``csrc/surface_columns.cu``): per slot of ``chunk``
     column-sorted centers holding a candidate atom, the K sphere points'
@@ -75,14 +78,14 @@ def void_masks_points(frac_atoms, cell, radii, grid, probe: float,
             lay, cell, grid, nbx, nby, window, thr_hi, thr_lo, thr_fit,
             pts_tiled)
     else:
-        hi, lo, fit = _launch_masks(lay, cell, grid, nbx, nby, thr_hi,
-                                    thr_lo, thr_fit, pts_tiled)
+        hi, lo, fit = _launch_masks(lay, cell, grid, nbx, nby, window,
+                                    thr_hi, thr_lo, thr_fit, pts_tiled)
     m_probe, m_chan = (hi, lo) if probe >= chan else (lo, hi)
     return m_probe, m_chan, fit, lay.missed
 
 
-def _launch_masks(lay, cell, grid, nbx, nby, thr_hi, thr_lo, thr_fit,
-                  pts_tiled):
+def _launch_masks(lay, cell, grid, nbx, nby, window, thr_hi, thr_lo,
+                  thr_fit, pts_tiled):
     from amof_tpu_torch import _build
 
     dev = cell.device
@@ -93,12 +96,12 @@ def _launch_masks(lay, cell, grid, nbx, nby, thr_hi, thr_lo, thr_fit,
     fit = (torch.empty((nbx * nby, n_pts), dtype=torch.bool, device=dev)
            if pts_tiled is not None else None)
     err = _build.library().void_masks_launch(
-        lay.payload.data_ptr(), lay.payload.shape[1], lay.start.data_ptr(),
-        lay.count.data_ptr(), cell.data_ptr(), *grid, nbx, nby,
+        lay.payload.data_ptr(), lay.payload.shape[1], lay.keys.data_ptr(),
+        lay.cstarts.data_ptr(), window, cell.data_ptr(), *grid, nbx, nby,
         thr_hi, thr_lo, thr_fit, int(two),
         0 if pts_tiled is None else pts_tiled.data_ptr(), n_pts,
         hi.data_ptr(), lo.data_ptr(), 0 if fit is None else fit.data_ptr(),
-        _build.stream_ptr(dev))
+        _build.stream_ptr(cell))
     _build.check(err, "void_masks_points")
     LAUNCHES["void_masks_points"] += 1
     return hi, lo, fit
@@ -160,7 +163,7 @@ def _launch_surface(lay, cell, inv_cell, dirs, r_probe, grid, nbx, nby,
         cell.data_ptr(), inv_cell.data_ptr(), dirs.data_ptr(),
         lay.nudge.data_ptr(), k, rp, peps, *grid,
         valid.data_ptr(), i_pt.data_ptr(), i_nu.data_ptr(),
-        _build.stream_ptr(dev))
+        _build.stream_ptr(cell))
     _build.check(err, "surface_valid_columns")
     LAUNCHES["surface_valid_columns"] += 1
     return valid, i_pt, i_nu

@@ -30,6 +30,8 @@ import threading
 
 import torch
 
+from amof_tpu_torch import _build
+
 SHAPE = (8, 128)
 
 # launches of the wrapper's CUDA kernel (CPU calls do not count)
@@ -50,19 +52,17 @@ def warmup_copy(src):
     """Kernel #9: a copy of a contiguous float32 tensor whose size is a
     multiple of 4 (8x128 in the warmup). CPU tensors take the plain
     version."""
-    if src.device.type == "cpu":
+    if src.is_cpu:
         return warmup_copy_plain(src)
-    from amof_tpu_torch import _build
-
-    if (src.dtype != torch.float32 or not src.is_contiguous()
-            or src.numel() % 4 or src.data_ptr() % 16):
+    ptr, n = src.data_ptr(), src.numel()
+    if (src.dtype != torch.float32 or not src.is_contiguous() or n % 4
+            or ptr % 16):
         raise ValueError("src must be contiguous float32, 16-byte aligned "
                          "(the kernel copies float4), with a size "
                          "divisible by 4")
     dst = torch.empty_like(src)
-    err = _build.library().warmup_copy_launch(
-        src.data_ptr(), dst.data_ptr(), src.numel(),
-        _build.stream_ptr(src.device))
+    err = _build.library().warmup_copy_launch(ptr, dst.data_ptr(), n,
+                                              _build.stream_ptr(src))
     _build.check(err, "warmup_copy")
     LAUNCHES["warmup_copy"] += 1
     return dst
@@ -83,8 +83,6 @@ class Warmup:
 
     def _run(self):
         try:
-            from amof_tpu_torch import _build
-
             _build.library()
             self._tensors, self.event = _first_launch(self.device)
         except Exception as exc:  # kept for wait(), never swallowed

@@ -34,10 +34,14 @@ Phases, each reported on its own line(s) of standard output:
 The batched pore step (``BatchedPore``, column path) joins each phase at
 bench.py's pore configuration (resolution 0.25 A, MC volume with 50000
 samples, 0.5 A connectivity grid, the first 32 frames of the same
-trajectory): phase 3 checks kernels #5 (void masks), #6 (surface
-blockers) and #7 (flood fill; also on a (16, 512, 512) grid, where the
-JAX package would take kernel #8) against their plain versions; phase 4
-runs the pore step on its own with the counters zeroed (all three must
+trajectory): phase 3 checks kernel #5 (void masks and MC fits, on
+bench frames 0-2 and on the void-slab frame below; its bound counts only
+the candidate pairs within reach in 3-D, the all-rows bound printed beside
+it),
+#6 (surface blockers) and #7 (flood fill; also on a (16, 512, 512) grid,
+where the JAX package would take kernel #8) against their plain
+versions; phase 4 runs the pore step on its own with the counters
+zeroed (all three must
 launch, no frame may stay missed, records finite), plus a side run on the
 glass with z squeezed into 72% of the box (a void slab: ASA and AV > 0);
 phase 5 compares card and CPU on a 2048-atom excerpt (masks, labels, fits
@@ -48,9 +52,12 @@ Per-analysis entry points (``rdf``, ``cn``, ``bad``, ``msd`` and
 ``pore.core``, through their pandas-free column functions, which the
 classes' ``from_trajectory`` wraps; the card has no pandas): phase 2 is
 the runtime warmup in this cold process (``amof_tpu_torch.warmup()``,
-kernel #9, which runs the nvcc build), then a cold-start child that times
-build, load, context and first launch and checks that ``FusedAnalysis``
-prepare launches the warmup (``python3 chip_smoke.py --cold-start-pairs``
+kernel #9, which runs the nvcc build; phase 3 times #9 beside
+``src.clone()``, its ``library_ms``, and ``dst.copy_(src)``, and each
+piece of the wrappers' launch path on the host clock), then a cold-start
+child that times build, load, context and first launch and checks that
+``FusedAnalysis`` prepare launches the warmup (``python3 chip_smoke.py
+--cold-start-pairs``
 runs that child alone plus bench.py's ``FusedAnalysis`` prepare + first
 result from cold processes with and without the warmup); phase
 4 runs each entry point on the bench trajectory with the counters zeroed
@@ -574,17 +581,112 @@ def pore_frame_inputs(pb, meta, dev, frame=0):
             torch.from_numpy(dirs).to(dev), torch.from_numpy(pts_tiled).to(dev))
 
 
-def pore_kernel_checks(pb, meta, dev):
-    """Phase 3, pore: kernels #5, #6, #7 against their plain versions at
-    the bench pore shapes on frame 0. Returns ({name: (max_abs_err, ms,
-    plain_ms)}, {name: (bytes, operations)})."""
+def void_masks_work(lay, cell, grid, cp, thr, pts, hi, fit, tile_batch=32):
+    """(bytes, f32 operations, all-rows operations, pair counts) of one
+    call of kernel #5 on these inputs, with ``hi`` the kernel's mask at
+    thr_hi and ``fit`` its MC fits. Bytes: each input read once (payload,
+    keys, column starts, cell, MC points) and each output written once.
+    Operations: only for the pairs whose compare fails, the candidate rows
+    within reach in 3-D (the plain version's f32 d2 below (R + thr)^2);
+    every other pair passes its compare and changes no output. Per pair,
+    counted from the kernel's expressions with the masks that ran: 9 per
+    (voxel, candidate) with one mask (10 with two), 22 per
+    (sub-column, candidate) that a voxel of the sub-column needs, 17 per
+    (MC point, candidate). The all-rows count (every candidate of the tile
+    for every voxel and point) is the bound of the earlier
+    one-block-per-tile kernel. Checks that the voxels and points with a
+    failing pair are exactly those the kernel closed."""
+    import torch
+
+    from amof_tpu_torch.ops.pair_engine import matvec3
+    from amof_tpu_torch.pore import grid_kernel as gk
+
+    gx, gy, gz = grid
+    nbx, nby, window = cp["nbx"], cp["nby"], cp["window"]
+    tvx, tvy = gx // nbx, gy // nby
+    n_tiles, n_sub = nbx * nby, tvx * tvy
+    thr_hi, thr_lo, thr_fit = thr
+    vox_ops = 10 if thr_hi != thr_lo else 9
+    c, dev = cell, cell.device
+    azz = c[2, 0] * c[2, 0] + c[2, 1] * c[2, 1] + c[2, 2] * c[2, 2]
+    sub = torch.arange(n_sub, device=dev)
+    lx, ly = (sub // tvy).float(), (sub % tvy).float()
+    vz = gk._div(torch.arange(gz, dtype=torch.float32, device=dev) + 0.5, gz)
+    hi_t = hi.reshape(nbx, tvx, nby, tvy, gz).permute(0, 2, 1, 3, 4).reshape(
+        n_tiles, n_sub, gz)
+    vox_pairs = col_pairs = pt_pairs = 0
+    for t0 in range(0, n_tiles, tile_batch):
+        t = torch.arange(t0, min(t0 + tile_batch, n_tiles), device=dev)
+        ti, tj, cx, cy = gk._tile_centers(t, nbx, nby)
+        (fx, fy, fz, r), ok = gk._gather_runs(lay.payload, lay.start[t],
+                                              lay.count[t], window)
+        fxc = fx - torch.round(fx - cx[:, None])
+        fyc = fy - torch.round(fy - cy[:, None])
+        neg = torch.full_like(r, -1.0)
+        sfx = gk._div((ti * tvx).float()[:, None] + lx + 0.5, gx)
+        sfy = gk._div((tj * tvy).float()[:, None] + ly + 0.5, gy)
+        dfx = sfx[:, :, None] - fxc[:, None, :]
+        dfy = sfy[:, :, None] - fyc[:, None, :]
+        qx = dfx * c[0, 0] + dfy * c[1, 0]
+        qy = dfx * c[0, 1] + dfy * c[1, 1]
+        qz = dfx * c[0, 2] + dfy * c[1, 2]
+        qq = qx * qx + qy * qy + qz * qz
+        qdz = (qx * c[2, 0] + qy * c[2, 1] + qz * c[2, 2]) * 2.0
+        dz = vz[None, :, None] - fz[:, None, :]
+        u = dz - torch.round(dz)
+        uu = azz * (u * u)
+        th = torch.where(ok, (r + thr_hi) * (r + thr_hi), neg)
+        fails = ~(qq[:, :, None, :] + uu[:, None, :, :]
+                  + u[:, None, :, :] * qdz[:, :, None, :]
+                  >= th[:, None, None, :])  # [b, S, gz, 3W]
+        vox_pairs += int(fails.sum())
+        col_pairs += int(fails.any(dim=2).sum())
+        check(torch.equal(fails.any(dim=3), ~hi_t[t]),
+              "void_masks_work: the failing pairs do not give the mask")
+        del fails
+        v = matvec3(pts[t], c)
+        wc = [fxc * c[0, i] + fyc * c[1, i] + fz * c[2, i] for i in range(3)]
+        s = torch.round(pts[t][:, :, 2, None] - fz[:, None, :])
+        d = [v[:, :, i, None] - wc[i][:, None, :] - s * c[2, i]
+             for i in range(3)]
+        th = torch.where(ok, (r + thr_fit) * (r + thr_fit), neg)
+        fails = ~(d[0] * d[0] + d[1] * d[1] + d[2] * d[2] >= th[:, None, :])
+        pt_pairs += int(fails.sum())
+        check(torch.equal(fails.any(dim=2), ~fit[t]),
+              "void_masks_work: the failing pairs do not give the fits")
+    n_cand = float(torch.clamp(lay.count, max=window).sum())
+    n_pts = pts.shape[0] * pts.shape[1]
+    n_vox = gx * gy * gz
+    n_bytes = (20 * lay.payload.shape[1] + 8 * lay.cstarts.numel() + 36
+               + 12 * n_pts + n_vox + n_pts)
+    all_rows = n_cand * (22 * n_sub + vox_ops * n_sub * gz
+                         + 17 * pts.shape[1])
+    # what the kernel's cut keeps (its plain twin): rows per (tile, slab)
+    kept = gk.void_masks_z_window(lay, cell, grid, cp["nbx"], cp["nby"],
+                                  window, thr_hi).sum(dim=2).double()
+    heights = torch.full((kept.shape[1],), float(gk.VOID_SLAB),
+                         dtype=torch.float64, device=kept.device)
+    heights[-1] = gz - gk.VOID_SLAB * (kept.shape[1] - 1)
+    say(f"void_masks_points cut: {n_cand / n_tiles:.1f} candidate rows a "
+        f"tile, {float(kept.mean()):.1f} kept a (tile, slab) block (max "
+        f"{int(kept.max())}); (voxel, candidate) tests "
+        f"{float((kept * heights).sum()) * n_sub:.4e} with the cut, "
+        f"{n_cand * n_sub * gz:.4e} over all rows")
+    return (n_bytes, vox_ops * vox_pairs + 22 * col_pairs + 17 * pt_pairs,
+            all_rows, (vox_pairs, col_pairs, pt_pairs))
+
+
+def pore_kernel_checks(pb, slab_pb, meta, dev):
+    """Phase 3, pore: kernel #5 against its plain version on bench frames
+    0-2 and on frame 0 of the void slab, kernels #6 and #7 on bench frame
+    0, at the bench pore shapes. Returns ({name: (max_abs_err, ms,
+    plain_ms)}, {name: (bytes, operations)}, #5's all-rows bound ms)."""
     import numpy as np
     import torch
 
     from amof_tpu_torch.pore import grid_kernel as gk
     from amof_tpu_torch.pore import surface_kernel as sk
 
-    frac, cell, inv, radii, dirs, pts = pore_frame_inputs(pb, meta, dev)
     cp, sp = meta["col_plan"], meta["surf_plan"]
     grid = cp["grid"]
     n_vox = grid[0] * grid[1] * grid[2]
@@ -611,31 +713,46 @@ def pore_kernel_checks(pb, meta, dev):
         say(f"kernel {name}: equal to plain; {ms:.3f} ms/call vs plain "
             f"{plain_ms:.3f} ms/call")
 
-    mk = (frac, cell, radii, grid, 1.2, 1.2, cp["nbx"], cp["nby"],
-          cp["window"])
-    got = sk.void_masks_points(*mk, pts_tiled=pts)
-    ref = gk.void_masks_columns(*mk, pts_tiled=pts)
-    torch.cuda.synchronize()
-    equal("void_masks_points", got, ref, "masks, MC fits, missed")
-    check(not bool(got[3]), "bench frame 0 missed the mask window")
-    m_chan = got[1]
-    say(f"pore masks: {int(m_chan.sum())} of {n_vox} voxels fit the "
-        f"probe; fits {int(got[2].sum())} of {got[2].numel()} points")
-    lay = gk.masks_layout(frac, radii, cp["nbx"], cp["nby"], cp["window"])
+    cases = [(f"bench frame {f}", pore_frame_inputs(pb, meta, dev, f))
+             for f in (0, 1, 2)]
+    cases.append(("void-slab frame 0", pore_frame_inputs(slab_pb, meta, dev)))
     thr = gk.mask_thresholds(1.2, 1.2)
+    for what, (frac, cell, inv, radii, dirs, pts) in reversed(cases):
+        mk = (frac, cell, radii, grid, 1.2, 1.2, cp["nbx"], cp["nby"],
+              cp["window"])
+        got = sk.void_masks_points(*mk, pts_tiled=pts)
+        ref = gk.void_masks_columns(*mk, pts_tiled=pts)
+        torch.cuda.synchronize()
+        equal("void_masks_points", got, ref, f"masks, MC fits, missed; {what}")
+        check(not bool(got[3]), f"{what} missed the mask window")
+        check(what.startswith("bench") or int(got[1].sum()) > 0,
+              f"{what}: no voxel fits the probe")
+        say(f"pore masks, {what}: {int(got[1].sum())} of {n_vox} voxels fit "
+            f"the probe; fits {int(got[2].sum())} of {got[2].numel()} points"
+            " (equal to plain)")
+        lay = gk.masks_layout(frac, radii, cp["nbx"], cp["nby"], cp["window"])
+        if what != "bench frame 0":
+            slab_ms = cuda_ms(lambda: sk._launch_masks(
+                lay, cell, grid, cp["nbx"], cp["nby"], cp["window"], *thr,
+                pts), reps=10, warmup=2)
+            say(f"kernel void_masks_points on {what}: {slab_ms:.3f} ms/call")
+    m_chan = got[1]  # bench frame 0, whose inputs the rest of phase 3 uses
     timed("void_masks_points",
           lambda: sk._launch_masks(lay, cell, grid, cp["nbx"], cp["nby"],
-                                   *thr, pts),
+                                   cp["window"], *thr, pts),
           lambda: gk.void_masks_tiles_plain(lay, cell, grid, cp["nbx"],
                                             cp["nby"], cp["window"], *thr,
                                             pts))
-    cands = lay.count.sum(dim=1).double()
-    n_sub = (grid[0] // cp["nbx"]) * (grid[1] // cp["nby"])
-    work["void_masks_points"] = (
-        16 * lay.payload.shape[1] + 24 * cands.numel() + n_vox
-        + 13 * pts.shape[0] * pts.shape[1],
-        float(cands.sum()) * (19 * n_sub + 10 * n_sub * grid[2]
-                              + 16 * pts.shape[1]))
+    # got[0], the probe mask, is the mask at thr_hi (probe >= channel)
+    n_bytes, ops, all_ops, (vox_pairs, col_pairs, pt_pairs) = (
+        void_masks_work(lay, cell, grid, cp, thr, pts, got[0], got[2]))
+    work["void_masks_points"] = (n_bytes, ops)
+    all_rows_ms = bound(n_bytes, all_ops)[0]
+    say(f"void_masks_points work: {vox_pairs:.4e} (voxel, candidate), "
+        f"{col_pairs:.4e} (sub-column, candidate) and {pt_pairs:.4e} "
+        f"(point, candidate) pairs within 3-D reach, {ops:.4e} f32 ops; "
+        f"every candidate row: {all_ops:.4e} ops, bound "
+        f"{all_rows_ms:.4f} ms")
 
     # flood fill: both calls of the chain, then a grid of kernel #8's
     open_init = torch.where(
@@ -692,7 +809,7 @@ def pore_kernel_checks(pb, meta, dev):
     work["surface_valid_columns"] = (
         20 * n + 20 * slay.blockers.shape[1] + 9 * n * k,
         float(np.sum((his - los) * k * (40 + 16 * b_rows[cols]))))
-    return res, work
+    return res, work, all_rows_ms
 
 
 def pore_main(pb, dev):
@@ -1030,12 +1147,59 @@ def cold_start(card, pairs=False):
     return rows
 
 
-def warmup_kernel_check(dev):
-    """Phase 3, kernel #9 against its plain version; returns ((max_abs_err,
-    ms, plain_ms), library_ms of ``dst.copy_(src)``, (bytes, ops))."""
+def host_path_us(src, reps=5000):
+    """Host microseconds per call (perf_counter over ``reps`` calls after
+    200 warm-up calls) of each piece of the kernel wrappers' launch path
+    as ``warmup_copy`` takes it, and of the whole wrapper beside
+    ``src.clone()`` and ``dst.copy_(src)``."""
+    import torch
+
+    from amof_tpu_torch import _build
+    from amof_tpu_torch.warmup import warmup_copy
+
+    dst = torch.empty_like(src)
+    fn = _build.library().warmup_copy_launch
+    sp, dp, n = src.data_ptr(), dst.data_ptr(), src.numel()
+    stream = _build.stream_ptr(src)
+
+    def checks():  # as warmup_copy makes them
+        if src.is_cpu:
+            return True
+        ptr, n = src.data_ptr(), src.numel()
+        return (src.dtype != torch.float32 or not src.is_contiguous()
+                or n % 4 or ptr % 16)
+
+    pieces = {
+        "library()": _build.library,
+        "stream_ptr": lambda: _build.stream_ptr(src),
+        "bare ctypes launch": lambda: fn(sp, dp, n, stream),
+        "checks": checks,
+        "empty_like": lambda: torch.empty_like(src),
+        "warmup_copy": lambda: warmup_copy(src),
+        "src.clone()": src.clone,
+        "dst.copy_(src)": lambda: dst.copy_(src),
+    }
+    out = {}
+    for name, call in pieces.items():
+        for _ in range(200):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        out[name] = 1e6 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+    return out
+
+
+def warmup_kernel_check(dev, card):
+    """Phase 3, kernel #9 against its plain version, and its launch path.
+    Returns ((max_abs_err, ms, plain_ms), library_ms of ``src.clone()``,
+    ms of ``dst.copy_(src)``, host us per piece, (bytes, ops))."""
     import numpy as np
     import torch
 
+    from amof_tpu_torch import _build
     from amof_tpu_torch.warmup import SHAPE, warmup_copy, warmup_copy_plain
 
     src = torch.from_numpy(np.random.default_rng(9).normal(
@@ -1043,13 +1207,27 @@ def warmup_kernel_check(dev):
     got, ref = warmup_copy(src), warmup_copy_plain(src)
     torch.cuda.synchronize()
     check(torch.equal(got, ref), "warmup_copy: kernel != plain")
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        check(_build.stream_ptr(src) == side.cuda_stream,
+              "stream_ptr is not the side stream under torch.cuda.stream")
+    check(_build.stream_ptr(src)
+          == torch.cuda.current_stream(dev).cuda_stream
+          == torch.cuda.default_stream(dev).cuda_stream,
+          "stream_ptr is not the current stream")
     dst = torch.empty_like(src)
     ms = cuda_ms(lambda: warmup_copy(src), reps=200, warmup=10)
     plain_ms = cuda_ms(lambda: warmup_copy_plain(src), reps=200, warmup=10)
-    library_ms = cuda_ms(lambda: dst.copy_(src), reps=200, warmup=10)
+    clone_ms = cuda_ms(src.clone, reps=200, warmup=10)
+    copy_ms = cuda_ms(lambda: dst.copy_(src), reps=200, warmup=10)
     say(f"kernel warmup_copy: equal to plain; {ms:.4f} ms/call vs plain "
-        f"{plain_ms:.4f}, dst.copy_(src) {library_ms:.4f} ms/call")
-    return (0.0, ms, plain_ms), library_ms, (2 * 4 * src.numel(), 0)
+        f"{plain_ms:.4f}, src.clone() {clone_ms:.4f}, dst.copy_(src) "
+        f"{copy_ms:.4f} ms/call (CUDA events, 200 calls) on {card}")
+    host = host_path_us(src)
+    say("launch path, host us/call: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in host.items()))
+    return ((0.0, ms, plain_ms), clone_ms, copy_ms, host,
+            (2 * 4 * src.numel(), 0))
 
 
 # --------------------------------------------------------------------------
@@ -1280,11 +1458,12 @@ def main():
     _, _, pmeta = BatchedPore(**PORE).prepare(pb, device=dev)
     say(f"pore plan: grid {pmeta['grid']}, masks {pmeta['col_plan']}, "
         f"surface {pmeta['surf_plan']}, K {pmeta['k']}")
-    pchecks, pwork = pore_kernel_checks(pb, pmeta, dev)
+    pchecks, pwork, masks_all_rows_ms = pore_kernel_checks(
+        pb, pore_batch_of(batch, 1, squeeze=0.72), pmeta, dev)
     checks.update(pchecks)
     work.update(pwork)
-    checks["warmup_copy"], copy_ms, work["warmup_copy"] = \
-        warmup_kernel_check(dev)
+    (checks["warmup_copy"], clone_ms, copy_ms, host_us,
+     work["warmup_copy"]) = warmup_kernel_check(dev, card)
 
     # 4. the main path, counted on its own
     reset_launches()
@@ -1380,8 +1559,12 @@ def main():
                             if name in n},
                         "max_abs_err": err, "ms": ms, "plain_ms": pms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": (copy_ms if name == "warmup_copy"
+                        "library_ms": (clone_ms if name == "warmup_copy"
                                        else None)})
+        if name == "warmup_copy":
+            kernels[-1]["copy_ms"] = copy_ms
+        if name == "void_masks_points":
+            kernels[-1]["bound_ms_all_rows"] = masks_all_rows_ms
         say(f"bound {name}: {bound_ms:.4f} ms ({bound_by}; "
             f"{work[name][0]:.3e} B, {work[name][1]:.3e} f32 ops) vs kernel "
             f"{ms:.3f} ms on {card}")
@@ -1390,7 +1573,7 @@ def main():
                       "pore_prepare_s": pore_prep,
                       "pore_first_pass_misses": pore_miss,
                       "entry_point_s": entry_walls, "cold_start": cold,
-                      "card": card}), flush=True)
+                      "launch_path_us": host_us, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

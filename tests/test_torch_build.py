@@ -83,6 +83,33 @@ def test_concurrent_library_calls_build_once(fake_build):
         _build.SOURCES) + 1
 
 
+def test_loaded_library_is_returned_without_the_lock(monkeypatch):
+    """Once the library is loaded, ``library()`` returns it while another
+    thread holds the build lock."""
+    loaded = object()
+    monkeypatch.setattr(_build, "_lib", loaded)
+    monkeypatch.setattr(_build, "_error", None)
+    held, release = threading.Event(), threading.Event()
+
+    def hold():
+        with _build._lock:
+            held.set()
+            release.wait(30)
+
+    holder = threading.Thread(target=hold)
+    holder.start()
+    try:
+        assert held.wait(30)
+        got = []
+        caller = threading.Thread(target=lambda: got.append(_build.library()))
+        caller.start()
+        caller.join(10)
+        assert not caller.is_alive() and got == [loaded]
+    finally:
+        release.set()
+        holder.join()
+
+
 def test_failed_build_raises_again_without_rebuilding(fake_build):
     write, calls = fake_build
     write(fail=True)

@@ -190,6 +190,40 @@ def test_void_masks_kernel_matches_plain(cuda, triclinic, probe, chan,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("gz", [7, 20, 36, 64])
+@pytest.mark.parametrize("triclinic", [False, True])
+@pytest.mark.parametrize("probe,chan", [(1.2, 1.2), (1.0, 1.3)])
+def test_void_masks_z_slabs_match_plain(cuda, gz, triclinic, probe, chan):
+    """Kernel #5's z slabs (8 voxels; 7, 20 and 36 are no multiple) on the
+    void-slab system in a tall cell, where the cut drops most rows: masks,
+    point fits and the missed flag equal the plain version over every
+    candidate, with MC points on and off."""
+    from amof_tpu_torch.pore import grid_kernel, surface_kernel
+
+    frac, cell, radii = pore_system(900, 20.0, 20 + gz, triclinic)
+    cell[2] *= 2.0
+    pts = np.random.default_rng(gz).random((5000, 3)).astype(np.float32)
+    pts_tiled, _ = grid_kernel.assign_points_to_xytiles(
+        pts, {"nbx": 5, "nby": 5})
+    f, c, r, p = on(cuda, frac, cell, radii, pts_tiled)
+    args = (f, c, r, (40, 40, gz), probe, chan, 5, 5, 256)
+    lay = grid_kernel.masks_layout(f, r, 5, 5, 256)
+    keep = grid_kernel.void_masks_z_window(
+        lay, c, (40, 40, gz), 5, 5, 256,
+        grid_kernel.mask_thresholds(probe, chan)[0])
+    _, ok = grid_kernel._gather_runs(lay.payload, lay.start, lay.count, 256)
+    if gz >= 20:
+        assert float(keep.sum()) < 0.6 * float(ok.sum()) * keep.shape[1]
+    for points in (p, None):
+        got = surface_kernel.void_masks_points(*args, pts_tiled=points)
+        ref = grid_kernel.void_masks_columns(*args, pts_tiled=points)
+        assert not bool(ref[3]) and 0 < int(ref[1].sum()) < ref[1].numel()
+        assert (got[2] is None) == (points is None)
+        assert_same([g for g in got if g is not None],
+                    [q for q in ref if q is not None])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("triclinic", [False, True])
 @pytest.mark.parametrize("k,window,col_cap,missed", [(8, 640, 192, False),
                                                      (28, 640, 192, False),
@@ -260,8 +294,9 @@ def test_pore_wrappers_count_launches(cuda):
 
 @pytest.mark.cuda
 def test_pore_kernels_multi_pass_staging(cuda):
-    """More candidate rows than one shared-memory pass holds (1024): the
-    kernels AND later passes into what the first wrote."""
+    """More candidate rows than one shared-memory pass holds (#5: 192 kept
+    rows of a z slab, #6: 1024): the kernels AND later passes into what
+    the first wrote."""
     from amof_tpu_torch.pore import grid_kernel, surface_kernel
 
     frac, cell, radii = pore_system(6000, 20.0, 12, squeeze=1.0)
@@ -273,6 +308,9 @@ def test_pore_kernels_multi_pass_staging(cuda):
     args = (f, c, r, (32, 32, 32), 0.6, 0.5, 4, 4, 2048)
     lay = grid_kernel.masks_layout(f, r, 4, 4, 2048)
     assert int(lay.count.sum(dim=1).min()) > 1024
+    keep = grid_kernel.void_masks_z_window(lay, c, (32, 32, 32), 4, 4, 2048,
+                                           0.6)
+    assert int(keep.sum(dim=2).min()) > 192  # #5 stages 192 rows a pass
     got = surface_kernel.void_masks_points(*args, pts_tiled=p)
     ref = grid_kernel.void_masks_columns(*args, pts_tiled=p)
     assert not bool(ref[3])
