@@ -51,9 +51,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes (every one returns cudaError_t as int)
 _SIGNATURES = {
+    "rdf_blocked_launch": (
+        _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P,
+    ),
     "rdf_hist_launch": (
         _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P,
     ),
+    "rdf_hist_geometry": (_I, _I, _I, _I, _I, _P),
     "window_table_launch": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
     ),

@@ -1,28 +1,39 @@
 """
 Species-pair minimum-image distance histogram of one frame: the RDF's
-pair pass, as a hand-written CUDA kernel with its plain PyTorch version.
+pair pass, as hand-written CUDA kernels with their plain PyTorch version.
 
 Counterpart of ``amof_tpu/ops/pallas_rdf.py``:
 
   * ``rdf_counts_blocked`` replaces ``pallas_rdf_counts_blocked``
-    (kernel #1): atoms in ``species_block_layout`` order, so a 256-atom
-    tile holds one species pair and its histogram is ``bins`` ints of
-    shared memory (~11 KB at dr 0.01 on a 55 A box);
+    (kernel #1): atoms in ``species_block_layout`` order (groups padded to
+    a multiple of 256), so a 256-atom tile holds one species pair and its
+    histogram is ``bins`` ints of shared memory (~11 KB at dr 0.01 on a
+    55 A box). The kernel checks that contract once a block (each tile's
+    real atoms are a prefix of one species) and then loops over the real
+    prefixes only, with no per-pair species or ``j > i`` test off the
+    diagonal; a block whose tiles break it takes a general loop, so any
+    order gives the same counts. It drops pairs beyond ``rmax`` before the
+    root: ``d2 < d2_cut(dr, bins)`` holds exactly when the pair's bin is
+    below ``bins`` (see ``d2_cut``);
   * ``rdf_counts`` replaces ``pallas_rdf_counts`` (kernel #2): any atom
     order, the whole ``S*S*bins`` histogram in shared memory when it fits
     (opt-in above 48 KB), else atomics straight to device memory.
 
-Both launch ``csrc/rdf_hist.cu`` (see its header for the design and what
-bounds it) for CUDA tensors and run the plain version for CPU tensors;
-there is no fallback between the two. The TPU kernel's one-hot MXU
-contraction, quadrant packing and VMEM key scratch have no counterpart:
-a shared-memory atomic is the natural histogram on this card.
+Both launch ``csrc/rdf_hist.cu`` (see its header for the design, what
+bounds it and why its floors are exact) for CUDA tensors and run the
+plain version for CPU tensors; there is no fallback between the two. The
+TPU kernel's one-hot MXU contraction, quadrant packing and VMEM key
+scratch have no counterpart: a shared-memory atomic is the natural
+histogram on this card.
 
 Counts are integers and equal the plain version's bit for bit: same
 expression order, no FMA contraction, IEEE sqrt, ``inv_dr = f32(1/dr)``.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -86,9 +97,9 @@ def apply_atom_layout(positions, perm):
 # Plain PyTorch version (the kernel's oracle; runs every CPU call)
 # --------------------------------------------------------------------------
 
-def _bins_plain(xi, xj, cell, inv, inv_dr: float, ortho: bool):
-    """floor(d * inv_dr) for every (i, j) of the [I, 3] x [J, 3] blocks,
-    in the kernel's expression order."""
+def d2_plain(xi, xj, cell, inv, ortho: bool):
+    """Squared minimum-image distance for every (i, j) of the [I, 3] x
+    [J, 3] blocks, in the kernel's expression order."""
     dx = xj[None, :, 0] - xi[:, None, 0]
     dy = xj[None, :, 1] - xi[:, None, 1]
     dz = xj[None, :, 2] - xi[:, None, 2]
@@ -107,8 +118,46 @@ def _bins_plain(xi, xj, cell, inv, inv_dr: float, ortho: bool):
         wx = fx * cell[0, 0] + fy * cell[1, 0] + fz * cell[2, 0]
         wy = fx * cell[0, 1] + fy * cell[1, 1] + fz * cell[2, 1]
         wz = fx * cell[0, 2] + fy * cell[1, 2] + fz * cell[2, 2]
-    d = sqrt_rn(wx * wx + wy * wy + wz * wz)
-    return torch.floor(d * inv_dr).to(torch.int64)
+    return wx * wx + wy * wy + wz * wz
+
+
+def bin_plain(d2, inv_dr: float):
+    """floor(sqrt_rn(d2) * inv_dr) in float32, as int64."""
+    return torch.floor(sqrt_rn(d2) * inv_dr).to(torch.int64)
+
+
+def _bins_plain(xi, xj, cell, inv, inv_dr: float, ortho: bool):
+    return bin_plain(d2_plain(xi, xj, cell, inv, ortho), inv_dr)
+
+
+@functools.lru_cache(maxsize=64)
+def d2_cut(dr: float, bins: int) -> float:
+    """The smallest float32 d2 whose bin ``floor(sqrt_rn(d2) * f32(1/dr))``
+    is >= ``bins`` (0.0 when ``bins`` <= 0): kernel #1 keeps a pair iff
+    its d2 < d2_cut.
+
+    Exact: the bin is monotone non-decreasing in d2 (a correctly rounded
+    root, an RN product by a positive constant and floor all are), so
+    ``d2 >= d2_cut`` <=> ``bin >= bins``. Found by bisection over the
+    bit patterns of non-negative float32 (ordered like the values), with
+    the plain version's own root and float32 product; cached per
+    (dr, bins), so a frame pays nothing for it."""
+    if bins <= 0:
+        return 0.0
+    inv_dr = float(np.float32(1.0 / dr))
+
+    def reaches(bits: int) -> bool:
+        d2 = torch.tensor([bits], dtype=torch.int32).view(torch.float32)
+        return bool(torch.floor(sqrt_rn(d2) * inv_dr)[0] >= bins)
+
+    lo, hi = 0, 0x7F800000  # bin(0) = 0 < bins; bin(+inf) >= bins
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if reaches(mid):
+            hi = mid
+        else:
+            lo = mid
+    return float(np.array(hi, np.int32).view(np.float32))
 
 
 def rdf_half_plain(positions, species_idx, cell, inv_cell, dr: float,
@@ -171,6 +220,20 @@ def _check_inputs(positions, cell, species_idx, inv_cell):
             raise ValueError("inputs must be contiguous")
 
 
+_QUEUES = {}  # (device index, stream) -> pointer of kernel #1's work queue
+
+
+def _queue(device, stream) -> int:
+    """Kernel #1's work queue on this device and stream: two int32, zeroed
+    once here and left zero by every launch (its last block resets them).
+    One per stream, so launches on two streams never share one."""
+    key = (device.index, stream)
+    buf = _QUEUES.get(key)
+    if buf is None:
+        buf = _QUEUES[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return buf.data_ptr()
+
+
 def _launch(name, mode, positions, cell, species_idx, dr, n_species, bins,
             ortho, inv_cell):
     from amof_tpu_torch import _build
@@ -178,15 +241,43 @@ def _launch(name, mode, positions, cell, species_idx, dr, n_species, bins,
     _check_inputs(positions, cell, species_idx, inv_cell)
     out = torch.zeros(n_species * n_species * bins, dtype=torch.int32,
                       device=positions.device)
-    err = _build.library().rdf_hist_launch(
-        positions.data_ptr(), species_idx.data_ptr(), cell.data_ptr(),
-        inv_cell.data_ptr(), positions.shape[0], n_species, bins,
-        float(np.float32(1.0 / dr)), mode, int(bool(ortho)),
-        out.data_ptr(), _build.stream_ptr(positions),
-    )
+    lib = _build.library()
+    args = (positions.data_ptr(), species_idx.data_ptr(), cell.data_ptr(),
+            inv_cell.data_ptr(), positions.shape[0], n_species, bins,
+            float(np.float32(1.0 / dr)))
+    stream = _build.stream_ptr(positions)
+    if mode == MODE_BLOCKED:
+        err = lib.rdf_blocked_launch(*args, d2_cut(dr, bins),
+                                     int(bool(ortho)),
+                                     _queue(positions.device, stream),
+                                     out.data_ptr(), stream)
+    else:
+        err = lib.rdf_hist_launch(*args, mode, int(bool(ortho)),
+                                  out.data_ptr(), stream)
     _build.check(err, name)
     LAUNCHES[name] += 1
     return _symmetrize(out, n_species, bins)
+
+
+def launch_geometry(mode: int, n: int, n_species: int, bins: int,
+                    ortho: bool = False) -> dict:
+    """What a launch at these shapes gets on the current card: blocks,
+    threads a block, dynamic shared bytes, resident blocks per SM,
+    registers a thread, work items (kernel #1's queue items; #2: its
+    blocks) and waves (blocks over the resident slots of every SM; kernel
+    #1's persistent grid is at most one). ``mode``: MODE_BLOCKED for
+    kernel #1, else kernel #2's mode."""
+    from amof_tpu_torch import _build
+
+    geo = (ctypes.c_int * 6)()
+    _build.check(_build.library().rdf_hist_geometry(
+        mode, n, n_species, bins, int(bool(ortho)), geo), "rdf_hist_geometry")
+    blocks, threads, smem, per_sm, regs, items = list(geo)
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    return {"blocks": blocks, "threads": threads, "smem_bytes": smem,
+            "blocks_per_sm": per_sm, "registers": regs, "sms": sms,
+            "items": items, "waves": blocks / max(per_sm * sms, 1)}
 
 
 def rdf_counts_blocked(positions, cell, species_idx, dr: float,
@@ -194,7 +285,8 @@ def rdf_counts_blocked(positions, cell, species_idx, dr: float,
                        inv_cell=None):
     """Kernel #1: float32 [S, S, bins] ordered-pair histogram of one frame
     in ``species_block_layout`` order (block a multiple of 256 for full
-    speed; any order gives the same counts)."""
+    speed; any order gives the same counts). Above ``SMEM_LIMIT`` bytes of
+    bins it takes kernel #2's device-memory atomics."""
     if inv_cell is None:
         inv_cell = inverse_cell(cell)
     if positions.device.type == "cpu":

@@ -250,6 +250,8 @@ def kernel_checks(args, meta, batch, dev, frames=(0, 1, 2),
             pos[f], cells[f], sp, dr, s, bins, ortho=ortho, inv_cell=inv[f]),
     )
 
+    rdf_blocked_side_checks(pos[frames[0]], cells[frames[0]], sp, s, bins)
+
     # kernel #2 on the bench trajectory in its own (unblocked) order
     unique, z_to_idx = _species_table(batch.species)
     pos_u, sp_u = pair_engine.pad_atoms(
@@ -296,6 +298,82 @@ def kernel_checks(args, meta, batch, dev, frames=(0, 1, 2),
             *srt[f], cells[f], cut, *window_check, inv_cell=inv[f]),
     )
     return res
+
+
+def rdf_blocked_side_checks(pos, cell, sp, s, bins):
+    """Kernel #1 off its fast path, on bench frame 0's atoms: a triclinic
+    frame (the same fractional coordinates in a sheared cell; general
+    template) and an order that breaks the blocked contract (a random
+    permutation of the slots; per-pair species path). Each must equal the
+    plain version."""
+    import numpy as np
+    import torch
+
+    from amof_tpu_torch.ops import rdf_kernel
+    from amof_tpu_torch.ops.pair_engine import inverse_cell
+
+    dr = BENCH["dr"]
+    box = float(cell[0, 0])
+    tri = torch.tensor([[box, 0, 0], [box / 4, box, 0], [box / 8, -box / 5,
+                                                         box]],
+                       dtype=torch.float32, device=pos.device)
+    pos_tri = ((pos @ inverse_cell(cell)) @ tri).contiguous()
+    order = torch.from_numpy(np.random.default_rng(1).permutation(
+        len(sp))).to(pos.device)
+    for what, p, c, t, ortho in (
+            ("triclinic frame", pos_tri, tri, sp, False),
+            ("contract-breaking order", pos[order].contiguous(), cell,
+             sp[order].contiguous(), True)):
+        inv = inverse_cell(c)
+        got = rdf_kernel.rdf_counts_blocked(p, c, t, dr, s, bins,
+                                            ortho=ortho, inv_cell=inv)
+        ref = rdf_kernel.rdf_counts_plain(p, c, t, dr, s, bins, ortho=ortho,
+                                          inv_cell=inv)
+        torch.cuda.synchronize()
+        check(float(ref.sum()) > 0, f"rdf_counts_blocked {what}: empty")
+        check(torch.equal(got, ref),
+              f"rdf_counts_blocked: kernel != plain on the {what} (max "
+              f"|diff| {max_abs_err([got], [ref])})")
+        ms = cuda_ms(lambda: rdf_kernel.rdf_counts_blocked(
+            p, c, t, dr, s, bins, ortho=ortho, inv_cell=inv), reps=5)
+        say(f"kernel rdf_counts_blocked: equal to plain on the {what}; "
+            f"{ms:.3f} ms/call")
+
+
+def rdf_geometry(n, n_u, s, bins, ortho):
+    """Registers (ptxas and the runtime), resident blocks per SM and waves
+    of kernels #1 (``n`` slots, blocked layout) and #2 (``n_u`` slots) at
+    the bench shapes."""
+    from amof_tpu_torch import _build
+    from amof_tpu_torch.ops import rdf_kernel
+
+    log = _build.BUILD_DIR / "ptxas.log"
+    if log.exists():
+        text = log.read_text()
+        start = text.find("== rdf_hist.cu")
+        section = text[start:text.find("\n== ", start + 1)]
+        entry = None
+        for line in section.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "Used" in line and entry:
+                used = line.split(":", 1)[1].strip()
+                say(f"ptxas rdf_hist.cu {entry}: {used}")
+                entry = None
+    fits = s * s * bins * 4 <= rdf_kernel.SMEM_LIMIT
+    out = {}
+    for name, mode, slots in (
+            ("rdf_counts_blocked", rdf_kernel.MODE_BLOCKED, n),
+            ("rdf_counts", rdf_kernel.MODE_SMEM_ALL if fits
+             else rdf_kernel.MODE_GLOBAL, n_u)):
+        geo = rdf_kernel.launch_geometry(mode, slots, s, bins, ortho)
+        out[name] = geo
+        say(f"geometry {name}: {geo['blocks']} blocks of {geo['threads']} "
+            f"threads for {geo['items']} work items, {geo['smem_bytes']} B "
+            f"dynamic shared, {geo['registers']} registers, "
+            f"{geo['blocks_per_sm']} blocks/SM on {geo['sms']} SMs: "
+            f"{geo['waves']:.2f} waves")
+    return out
 
 
 def _counters():
@@ -1451,6 +1529,10 @@ def main():
     # 3. kernels vs plain
     checks = kernel_checks(args, meta, batch, dev)
     work = fused_work(args, meta, batch)
+    geometry = rdf_geometry(args.positions.shape[1],
+                            -(-batch.num_atoms // BENCH["chunk"])
+                            * BENCH["chunk"], len(meta["unique"]),
+                            meta["bins"], meta["ortho"])
     del step_fn, args
     from amof_tpu_torch.pore import BatchedPore
 
@@ -1565,6 +1647,8 @@ def main():
             kernels[-1]["copy_ms"] = copy_ms
         if name == "void_masks_points":
             kernels[-1]["bound_ms_all_rows"] = masks_all_rows_ms
+        if name in geometry:
+            kernels[-1]["geometry"] = geometry[name]
         say(f"bound {name}: {bound_ms:.4f} ms ({bound_by}; "
             f"{work[name][0]:.3e} B, {work[name][1]:.3e} f32 ops) vs kernel "
             f"{ms:.3f} ms on {card}")

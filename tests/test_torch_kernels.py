@@ -71,6 +71,60 @@ def test_rdf_kernels_match_plain(cuda, blocked, triclinic):
     assert_same([got], [ref])
 
 
+def bench_glass(n=10240, seed=0, triclinic=False):
+    """10240 atoms of Zn(C3N2H3)2 at 0.062 atoms/A^3 (Zn 602, N 2408,
+    C 3612, H 3618), as the bench trajectory's first frame is drawn."""
+    counts = [n // 17, 4 * (n // 17), 6 * (n // 17)]
+    counts.append(n - sum(counts))
+    sp = np.concatenate([np.full(c, k, np.int32)
+                         for k, c in enumerate(counts)])
+    box = (n / 0.062) ** (1 / 3)
+    rng = np.random.default_rng(seed)
+    cell = np.eye(3, dtype=np.float32) * box
+    if triclinic:
+        cell[1, 0], cell[2, 0], cell[2, 1] = box / 4, box / 8, -box / 5
+    pos = (rng.uniform(0, 1, (n, 3)) @ cell).astype(np.float32)
+    return pos, cell, sp, int(box / 2 // 0.01)
+
+
+def rdf_blocked_case(name):
+    """(positions, cell, species, n_species, bins, ortho) of kernel #1's
+    card cases; every grid holds more blocks than one wave of resident
+    blocks (946 tile pairs at 10240 atoms in the blocked layout)."""
+    pos, cell, sp, bins = bench_glass(triclinic=name == "triclinic")
+    ortho = name in ("bench", "far from the origin")
+    if name == "single species, n not a multiple of 256":
+        return pos[:10001], cell, np.zeros(10001, np.int32), 1, bins, True
+    if name == "contract broken (random order)":
+        order = np.random.default_rng(1).permutation(len(sp))
+        return pos[order], cell, sp[order], 4, bins, True
+    if name == "far from the origin":  # the wrap's floors take floorf
+        pos = pos + np.float32(1e8)
+    perm, sp_l = rdf_kernel.species_block_layout(sp, 256, 256)
+    return (rdf_kernel.apply_atom_layout(pos, perm), cell,
+            sp_l.astype(np.int32), 4, bins, ortho)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "bench", "general template", "triclinic",
+    "single species, n not a multiple of 256",
+    "contract broken (random order)", "far from the origin"])
+def test_rdf_blocked_kernel_matches_plain_at_bench_size(cuda, name):
+    """Kernel #1 at the bench's 10240 atoms: the ortho and general
+    templates, the contract-breaking path, a tile cut by n and the
+    floorf wrap, each equal to the plain version."""
+    pos, cell, sp, s, bins, ortho = rdf_blocked_case(name)
+    p, c, t = on(cuda, pos, cell, sp)
+    got = rdf_kernel.rdf_counts_blocked(p, c, t, 0.01, s, bins, ortho=ortho)
+    ref = rdf_kernel.rdf_counts_plain(p, c, t, 0.01, s, bins, ortho=ortho)
+    assert float(ref.sum()) > 0
+    assert_same([got], [ref])
+    geo = rdf_kernel.launch_geometry(rdf_kernel.MODE_BLOCKED, len(sp), s,
+                                     bins, ortho)
+    assert geo["blocks_per_sm"] > 0 and geo["registers"] > 0
+
+
 @pytest.mark.cuda
 def test_rdf_global_atomics_mode_matches_plain(cuda):
     """S*S*bins too large for shared memory: atomics to device memory."""
