@@ -58,6 +58,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P,
     ),
     "rdf_hist_geometry": (_I, _I, _I, _I, _I, _P),
+    "rdf_root_check_launch": (_P, _P),
     "window_table_launch": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
     ),

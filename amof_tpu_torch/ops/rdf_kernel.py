@@ -8,13 +8,16 @@ Counterpart of ``amof_tpu/ops/pallas_rdf.py``:
     (kernel #1): atoms in ``species_block_layout`` order (groups padded to
     a multiple of 256), so a 256-atom tile holds one species pair and its
     histogram is ``bins`` ints of shared memory (~11 KB at dr 0.01 on a
-    55 A box). The kernel checks that contract once a block (each tile's
-    real atoms are a prefix of one species) and then loops over the real
-    prefixes only, with no per-pair species or ``j > i`` test off the
-    diagonal; a block whose tiles break it takes a general loop, so any
-    order gives the same counts. It drops pairs beyond ``rmax`` before the
-    root: ``d2 < d2_cut(dr, bins)`` holds exactly when the pair's bin is
-    below ``bins`` (see ``d2_cut``);
+    55 A box). A persistent grid takes (i tile, half j tile) work items
+    from a queue (``_queue``), so the SMs finish together. The kernel
+    checks that contract once an item (each tile's real atoms are a
+    prefix of one species) and then loops over the real prefixes only,
+    with no per-pair species or ``j > i`` test off the diagonal; an item
+    whose tiles break it takes a general loop, so any order gives the
+    same counts. It keeps a pair iff ``d2 < d2_cut(dr, bins)``, which
+    holds exactly when the pair's bin is below ``bins`` (see ``d2_cut``),
+    and takes the root without ``sqrtf``'s range test
+    (``root_mismatches`` holds it equal to ``sqrtf`` on the card);
   * ``rdf_counts`` replaces ``pallas_rdf_counts`` (kernel #2): any atom
     order, the whole ``S*S*bins`` histogram in shared memory when it fits
     (opt-in above 48 KB), else atomics straight to device memory.
@@ -126,10 +129,6 @@ def bin_plain(d2, inv_dr: float):
     return torch.floor(sqrt_rn(d2) * inv_dr).to(torch.int64)
 
 
-def _bins_plain(xi, xj, cell, inv, inv_dr: float, ortho: bool):
-    return bin_plain(d2_plain(xi, xj, cell, inv, ortho), inv_dr)
-
-
 @functools.lru_cache(maxsize=64)
 def d2_cut(dr: float, bins: int) -> float:
     """The smallest float32 d2 whose bin ``floor(sqrt_rn(d2) * f32(1/dr))``
@@ -173,8 +172,8 @@ def rdf_half_plain(positions, species_idx, cell, inv_cell, dr: float,
     for i0 in range(0, n, chunk):
         i1 = min(i0 + chunk, n)
         si, sj = sp[i0:i1], sp[i0:]
-        b = _bins_plain(positions[i0:i1], positions[i0:], cell, inv_cell,
-                        inv_dr, ortho)
+        b = bin_plain(d2_plain(positions[i0:i1], positions[i0:], cell,
+                               inv_cell, ortho), inv_dr)
         gi = torch.arange(i0, i1, device=b.device)[:, None]
         gj = torch.arange(i0, n, device=b.device)[None, :]
         valid = (gi < gj) & (si >= 0)[:, None] & (sj >= 0)[None, :] \
@@ -280,6 +279,18 @@ def launch_geometry(mode: int, n: int, n_species: int, bins: int,
             "items": items, "waves": blocks / max(per_sm * sms, 1)}
 
 
+def root_mismatches(device="cuda") -> int:
+    """How many float32 x in [2^-100, FLT_MAX] kernel #1's root (the fast
+    path of the IEEE square root, without its range test) gives unlike
+    ``sqrtf``: 0 makes the kernel's bins exact. Card only."""
+    from amof_tpu_torch import _build
+
+    bad = torch.zeros(1, dtype=torch.int32, device=device)
+    _build.check(_build.library().rdf_root_check_launch(
+        bad.data_ptr(), _build.stream_ptr(bad)), "rdf_root_check")
+    return int(bad.item())
+
+
 def rdf_counts_blocked(positions, cell, species_idx, dr: float,
                        n_species: int, bins: int, ortho: bool = False,
                        inv_cell=None):
@@ -293,6 +304,10 @@ def rdf_counts_blocked(positions, cell, species_idx, dr: float,
         return rdf_counts_plain(positions, cell, species_idx, dr, n_species,
                                 bins, ortho, inv_cell)
     mode = MODE_BLOCKED if bins * 4 <= SMEM_LIMIT else MODE_GLOBAL
+    if mode == MODE_BLOCKED and np.float32(1.0 / dr) >= 2.0 ** 50:
+        # below d2 = 2^-100 the kernel bins max(d2, 2^-100): bin 0 only
+        # while 2^-50 * inv_dr < 1
+        raise ValueError("rdf_counts_blocked needs dr > 2^-50 A")
     return _launch("rdf_counts_blocked", mode, positions, cell, species_idx,
                    dr, n_species, bins, ortho, inv_cell)
 

@@ -10,7 +10,11 @@ Phases, each reported on its own line(s) of standard output:
   3. each hand-written kernel against its plain PyTorch version on the
      card, at the shapes of bench.py's fused step (10240-atom ZIF-glass
      trajectory, dr 0.01 A, K 8; kernel #4 at K 16, chunk 256, W 1408):
-     integer outputs must be equal, and so must the neighbour positions;
+     integer outputs must be equal, and so must the neighbour positions.
+     Kernel #1 also on a triclinic frame and an order that breaks its
+     blocked contract, its root against sqrtf on every float32 in
+     [2^-100, FLT_MAX], and the registers (ptxas), resident blocks per SM
+     and waves of kernels #1 and #2;
   4. the main path: ``FusedAnalysis.run`` at bench.py's configuration
      (256 frames, dtheta 0.05 deg, chunk 256, max_neighbors 8,
      frames_per_call 128, BAD and MSD on). Launch counters are zeroed
@@ -301,7 +305,8 @@ def kernel_checks(args, meta, batch, dev, frames=(0, 1, 2),
 
 
 def rdf_blocked_side_checks(pos, cell, sp, s, bins):
-    """Kernel #1 off its fast path, on bench frame 0's atoms: a triclinic
+    """Kernel #1's root against sqrtf on every float32 it can meet, then
+    kernel #1 off its fast path, on bench frame 0's atoms: a triclinic
     frame (the same fractional coordinates in a sheared cell; general
     template) and an order that breaks the blocked contract (a random
     permutation of the slots; per-pair species path). Each must equal the
@@ -312,6 +317,12 @@ def rdf_blocked_side_checks(pos, cell, sp, s, bins):
     from amof_tpu_torch.ops import rdf_kernel
     from amof_tpu_torch.ops.pair_engine import inverse_cell
 
+    t0 = time.perf_counter()
+    bad = rdf_kernel.root_mismatches()
+    check(bad == 0, f"rdf_counts_blocked: its root differs from sqrtf on "
+          f"{bad} float32 values")
+    say(f"kernel rdf_counts_blocked: its root equals sqrtf on every float32 "
+        f"in [2^-100, FLT_MAX] ({time.perf_counter() - t0:.2f} s)")
     dr = BENCH["dr"]
     box = float(cell[0, 0])
     tri = torch.tensor([[box, 0, 0], [box / 4, box, 0], [box / 8, -box / 5,

@@ -126,6 +126,13 @@ def test_rdf_blocked_kernel_matches_plain_at_bench_size(cuda, name):
 
 
 @pytest.mark.cuda
+def test_rdf_blocked_root_equals_sqrtf(cuda):
+    """Kernel #1's root (IEEE fast path without the range test) equals
+    sqrtf on every float32 in [2^-100, FLT_MAX]."""
+    assert rdf_kernel.root_mismatches() == 0
+
+
+@pytest.mark.cuda
 def test_rdf_global_atomics_mode_matches_plain(cuda):
     """S*S*bins too large for shared memory: atomics to device memory."""
     pos, cell, sp = case(1000, 6, 2, 40.0)
