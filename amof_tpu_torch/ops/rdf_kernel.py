@@ -16,8 +16,11 @@ Counterpart of ``amof_tpu/ops/pallas_rdf.py``:
     whose tiles break it takes a general loop, so any order gives the
     same counts. It keeps a pair iff ``d2 < d2_cut(dr, bins)``, which
     holds exactly when the pair's bin is below ``bins`` (see ``d2_cut``),
-    and takes the root without ``sqrtf``'s range test
-    (``root_mismatches`` holds it equal to ``sqrtf`` on the card);
+    and takes the root without ``sqrtf``'s range test. Its bins are exact
+    only where that root equals ``sqrtf`` on every float32 it can meet
+    (``root_mismatches() == 0``, as on an H100 with the sm_90a build): the
+    wrapper runs that check once per device before its first launch and
+    raises where it fails;
   * ``rdf_counts`` replaces ``pallas_rdf_counts`` (kernel #2): any atom
     order, the whole ``S*S*bins`` histogram in shared memory when it fits
     (opt-in above 48 KB), else atomics straight to device memory.
@@ -291,6 +294,24 @@ def root_mismatches(device="cuda") -> int:
     return int(bad.item())
 
 
+_ROOT_CHECKED = set()  # device indices where root_mismatches() gave 0
+
+
+def _require_exact_root(device):
+    """Kernel #1's bins are exact only where its root equals ``sqrtf``:
+    check that once per device (a few ms, at the first launch) and raise
+    where it does not hold."""
+    if device.index in _ROOT_CHECKED:
+        return
+    bad = root_mismatches(device)
+    if bad:
+        raise RuntimeError(
+            f"rdf_counts_blocked: on this card the kernel's root differs "
+            f"from sqrtf on {bad} float32 values, so its bins would not be "
+            f"exact")
+    _ROOT_CHECKED.add(device.index)
+
+
 def rdf_counts_blocked(positions, cell, species_idx, dr: float,
                        n_species: int, bins: int, ortho: bool = False,
                        inv_cell=None):
@@ -308,6 +329,8 @@ def rdf_counts_blocked(positions, cell, species_idx, dr: float,
         # below d2 = 2^-100 the kernel bins max(d2, 2^-100): bin 0 only
         # while 2^-50 * inv_dr < 1
         raise ValueError("rdf_counts_blocked needs dr > 2^-50 A")
+    if mode == MODE_BLOCKED:
+        _require_exact_root(positions.device)
     return _launch("rdf_counts_blocked", mode, positions, cell, species_idx,
                    dr, n_species, bins, ortho, inv_cell)
 

@@ -128,8 +128,12 @@ def test_rdf_blocked_kernel_matches_plain_at_bench_size(cuda, name):
 @pytest.mark.cuda
 def test_rdf_blocked_root_equals_sqrtf(cuda):
     """Kernel #1's root (IEEE fast path without the range test) equals
-    sqrtf on every float32 in [2^-100, FLT_MAX]."""
+    sqrtf on every float32 in [2^-100, FLT_MAX], and the wrapper has made
+    that check on the device before it launched there."""
     assert rdf_kernel.root_mismatches() == 0
+    p, c, s = on(cuda, *case(600, 2, 3, 20.0))
+    rdf_kernel.rdf_counts_blocked(p, c, s, 0.01, 2, 900)
+    assert p.device.index in rdf_kernel._ROOT_CHECKED
 
 
 @pytest.mark.cuda
