@@ -75,6 +75,7 @@ _SIGNATURES = {
         _I, _F, _F, _I, _I, _I, _P, _P, _P, _P,
     ),
     "flood_fill_launch": (_P, _I, _I, _I, _I, _P, _P, _P),
+    "flood_fill_geometry": (_I, _I, _I, _P),
     "warmup_copy_launch": (_P, _P, _I, _P),
 }
 

@@ -776,25 +776,64 @@ def _check_labels(init):
         raise ValueError("grid too large for int32 voxel indices")
 
 
+# kernel #7's tile, (x, y, z) voxels, as in csrc/flood_fill.cu
+FLOOD_TILE = (8, 8, 16)
+# its launches, in order, as flood_fill_geometry reports them
+FLOOD_STEPS = ("tiles", "faces", "gather")
+
+
+def flood_tiles(shape) -> int:
+    """Tiles kernel #7 cuts a grid of ``shape`` into (one block each)."""
+    (gx, gy, gz), (tx, ty, tz) = shape, FLOOD_TILE
+    return -(-gx // tx) * -(-gy // ty) * -(-gz // tz)
+
+
 def propagate_fixpoint(init, periodic: bool):
     """Fixpoint of masked 6-neighbour max propagation: every voxel with
     init >= 0 ends with the maximum init over its connected component
     (6-connectivity; periodic or open boundaries), every other voxel with
     -1. Kernel #7 (``csrc/flood_fill.cu``) for CUDA tensors, the plain
-    sweeps for CPU tensors."""
+    sweeps for CPU tensors.
+
+    On the card the result and the kernel's scratch (union-find parents,
+    one flag a tile) are one allocation, since the call is host-bound: the
+    returned tensor is a view of its first ``init.numel()`` ints and keeps
+    the rest (about as many again) alive while it lives."""
     _check_labels(init)
     if init.device.type == "cpu":
         return propagate_fixpoint_plain(init, periodic)
     from amof_tpu_torch import _build
 
     gx, gy, gz = init.shape
-    parent = torch.empty_like(init)
-    out = torch.empty_like(init)
+    n = init.numel()
+    buf = torch.empty(2 * n + flood_tiles(init.shape), dtype=_I32,
+                      device=init.device)
+    ptr = buf.data_ptr()
     err = _build.library().flood_fill_launch(
-        init.data_ptr(), gx, gy, gz, int(bool(periodic)), parent.data_ptr(),
-        out.data_ptr(), _build.stream_ptr(init))
+        init.data_ptr(), gx, gy, gz, int(bool(periodic)), ptr + 4 * n, ptr,
+        _build.stream_ptr(init))
     _build.check(err, "flood_fill")
     LAUNCHES["flood_fill"] += 1
+    return buf.as_strided((gx, gy, gz), (gy * gz, gz, 1))
+
+
+def flood_fill_geometry(shape) -> dict:
+    """What kernel #7's launches get at ``shape`` on the current card:
+    {step: {blocks, threads, smem_bytes (static), registers,
+    blocks_per_sm}} for each of ``FLOOD_STEPS``, plus ``tile`` and
+    ``scratch_ints`` as the CUDA source computes them."""
+    import ctypes
+
+    from amof_tpu_torch import _build
+
+    geo = (ctypes.c_int * (5 * len(FLOOD_STEPS) + 4))()
+    _build.check(_build.library().flood_fill_geometry(*shape, geo),
+                 "flood_fill_geometry")
+    keys = ("blocks", "threads", "smem_bytes", "registers", "blocks_per_sm")
+    out = {step: dict(zip(keys, geo[5 * k:5 * k + 5]))
+           for k, step in enumerate(FLOOD_STEPS)}
+    out["tile"] = tuple(geo[-4:-1])
+    out["scratch_ints"] = geo[-1]
     return out
 
 

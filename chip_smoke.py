@@ -42,10 +42,11 @@ trajectory): phase 3 checks kernel #5 (void masks and MC fits, on
 bench frames 0-2 and on the void-slab frame below; its bound counts only
 the candidate pairs within reach in 3-D, the all-rows bound printed beside
 it),
-#6 (surface blockers) and #7 (flood fill; also on a (16, 512, 512) grid,
-where the JAX package would take kernel #8) against their plain
-versions; phase 4 runs the pore step on its own with the counters
-zeroed (all three must
+#6 (surface blockers) and #7 (flood fill: both calls of the chain on bench
+frame 0 and on the void-slab frame, and a (16, 512, 512) grid, where the
+JAX package would take kernel #8; each case timed, with a geometry line
+per launch) against their plain versions; phase 4 runs the pore step on
+its own with the counters zeroed (all three must
 launch, no frame may stay missed, records finite), plus a side run on the
 glass with z squeezed into 72% of the box (a void slab: ASA and AV > 0);
 phase 5 compares card and CPU on a 2048-atom excerpt (masks, labels, fits
@@ -765,11 +766,28 @@ def void_masks_work(lay, cell, grid, cp, thr, pts, hi, fit, tile_batch=32):
             all_rows, (vox_pairs, col_pairs, pt_pairs))
 
 
-def pore_kernel_checks(pb, slab_pb, meta, dev):
+def flood_occupied(mask):
+    """How many of kernel #7's tiles hold a voxel of ``mask``."""
+    import torch
+    import torch.nn.functional as F
+
+    from amof_tpu_torch.pore.grid_kernel import FLOOD_TILE as t
+
+    pad = [(-s) % d for s, d in zip(mask.shape, t)]
+    m = F.pad(mask.to(torch.uint8), (0, pad[2], 0, pad[1], 0, pad[0]))
+    gx, gy, gz = m.shape
+    return int(m.reshape(gx // t[0], t[0], gy // t[1], t[1], gz // t[2],
+                         t[2]).amax((1, 3, 5)).sum())
+
+
+def pore_kernel_checks(pb, slab_pb, meta, dev, card):
     """Phase 3, pore: kernel #5 against its plain version on bench frames
-    0-2 and on frame 0 of the void slab, kernels #6 and #7 on bench frame
-    0, at the bench pore shapes. Returns ({name: (max_abs_err, ms,
-    plain_ms)}, {name: (bytes, operations)}, #5's all-rows bound ms)."""
+    0-2 and on frame 0 of the void slab, #7 on both calls of the chain on
+    bench frame 0 and the void-slab frame and on a (16, 512, 512) grid
+    (each case timed, with its launches' geometry), #6 on bench frame 0,
+    at the bench pore shapes. Returns ({name: (max_abs_err, ms,
+    plain_ms)}, {name: (bytes, operations)}, #5's all-rows bound ms,
+    (#7's geometry, #7's ms by case))."""
     import numpy as np
     import torch
 
@@ -792,11 +810,11 @@ def pore_kernel_checks(pb, slab_pb, meta, dev):
             check(torch.equal(g, r), f"{name}: kernel != plain ({what}; "
                   f"{int((g != r).sum())} items differ)")
 
-    def timed(name, kern, plain, errs=0.0):
+    def timed(name, kern, plain, errs=0.0, reps=10):
         """Times one call of the kernel alone and of its plain version on
         the same prepared layout (the sorts that build it are glue,
         timed by the stage split)."""
-        ms = cuda_ms(kern, reps=10, warmup=2)
+        ms = cuda_ms(kern, reps=reps, warmup=2)
         plain_ms = cuda_ms(plain, reps=2, warmup=1)
         res[name] = (errs, ms, plain_ms)
         say(f"kernel {name}: equal to plain; {ms:.3f} ms/call vs plain "
@@ -806,6 +824,7 @@ def pore_kernel_checks(pb, slab_pb, meta, dev):
              for f in (0, 1, 2)]
     cases.append(("void-slab frame 0", pore_frame_inputs(slab_pb, meta, dev)))
     thr = gk.mask_thresholds(1.2, 1.2)
+    chan = {}  # channel masks by frame, kernel #7's inputs
     for what, (frac, cell, inv, radii, dirs, pts) in reversed(cases):
         mk = (frac, cell, radii, grid, 1.2, 1.2, cp["nbx"], cp["nby"],
               cp["window"])
@@ -819,13 +838,14 @@ def pore_kernel_checks(pb, slab_pb, meta, dev):
         say(f"pore masks, {what}: {int(got[1].sum())} of {n_vox} voxels fit "
             f"the probe; fits {int(got[2].sum())} of {got[2].numel()} points"
             " (equal to plain)")
+        chan[what] = got[1]
         lay = gk.masks_layout(frac, radii, cp["nbx"], cp["nby"], cp["window"])
         if what != "bench frame 0":
             slab_ms = cuda_ms(lambda: sk._launch_masks(
                 lay, cell, grid, cp["nbx"], cp["nby"], cp["window"], *thr,
                 pts), reps=10, warmup=2)
             say(f"kernel void_masks_points on {what}: {slab_ms:.3f} ms/call")
-    m_chan = got[1]  # bench frame 0, whose inputs the rest of phase 3 uses
+    m_chan = chan["bench frame 0"]  # whose inputs the rest of phase 3 uses
     timed("void_masks_points",
           lambda: sk._launch_masks(lay, cell, grid, cp["nbx"], cp["nby"],
                                    cp["window"], *thr, pts),
@@ -843,19 +863,31 @@ def pore_kernel_checks(pb, slab_pb, meta, dev):
         f"every candidate row: {all_ops:.4e} ops, bound "
         f"{all_rows_ms:.4f} ms")
 
-    # flood fill: both calls of the chain, then a grid of kernel #8's
-    open_init = torch.where(
-        m_chan, torch.arange(n_vox, dtype=torch.int32,
-                             device=dev).reshape(grid),
-        torch.full(grid, -1, dtype=torch.int32, device=dev))
-    lab = gk.propagate_fixpoint(open_init, False)
-    equal("flood_fill", [lab], [gk.propagate_fixpoint_plain(open_init, False)],
-          "open boundaries, linear-index init")
-    seeds = gk.winding_seeds(lab, m_chan)
-    tern = torch.where(seeds, 1, torch.where(m_chan, 0, -1)).to(torch.int32)
-    acc = gk.propagate_fixpoint(tern, True)
-    equal("flood_fill", [acc], [gk.propagate_fixpoint_plain(tern, True)],
-          "periodic, {1, 0, -1} init")
+    # flood fill: both calls of the chain on bench frame 0 and on the
+    # void-slab frame, then a grid of kernel #8's; each case timed
+    flood = []  # (what, init, periodic)
+    for what in ("bench frame 0", "void-slab frame 0"):
+        mask = chan[what]
+        open_init = torch.where(
+            mask, torch.arange(n_vox, dtype=torch.int32,
+                               device=dev).reshape(grid),
+            torch.full(grid, -1, dtype=torch.int32, device=dev))
+        lab = gk.propagate_fixpoint(open_init, False)
+        equal("flood_fill", [lab],
+              [gk.propagate_fixpoint_plain(open_init, False)],
+              f"{what}, open boundaries, linear-index init")
+        seeds = gk.winding_seeds(lab, mask)
+        tern = torch.where(seeds, 1, torch.where(mask, 0, -1)).to(
+            torch.int32)
+        acc = gk.propagate_fixpoint(tern, True)
+        equal("flood_fill", [acc], [gk.propagate_fixpoint_plain(tern, True)],
+              f"{what}, periodic, {{1, 0, -1}} init")
+        say(f"flood fill, {what}: {int(mask.sum())} of {n_vox} voxels in "
+            f"{flood_occupied(mask)} of {gk.flood_tiles(grid)} tiles, "
+            f"{int(seeds.sum())} winding seeds, {int((acc == 1).sum())} "
+            f"accessible voxels (equal to plain)")
+        flood += [(f"{what}, open, linear init", open_init, False),
+                  (f"{what}, periodic, ternary init", tern, True)]
     rng = np.random.default_rng(8)
     m8 = torch.from_numpy(rng.random(FLOOD_8_GRID) < 0.5).to(dev)
     init8 = torch.where(
@@ -866,12 +898,33 @@ def pore_kernel_checks(pb, slab_pb, meta, dev):
         equal("flood_fill", [gk.propagate_fixpoint(init8, periodic)],
               [gk.propagate_fixpoint_plain(init8, periodic)],
               f"{FLOOD_8_GRID} random mask, periodic {periodic}")
-    say(f"flood fill: {int(seeds.sum())} winding seeds, "
-        f"{int((acc == 1).sum())} accessible voxels; equal on "
-        f"{FLOOD_8_GRID} too")
+        flood.append((f"{FLOOD_8_GRID} random 50%, "
+                      f"{'periodic' if periodic else 'open'}, linear init",
+                      init8, periodic))
+    say(f"flood fill: equal to plain on {FLOOD_8_GRID} too "
+        f"({int(m8.sum())} voxels, open and periodic)")
+    # the calls are host-bound (0.03-0.05 ms of host time each on the H100
+    # machine): 50 calls a case
+    flood_ms = {}
+    for what, init, periodic in flood:
+        flood_ms[what] = cuda_ms(
+            lambda: gk.propagate_fixpoint(init, periodic), reps=50, warmup=5)
+        say(f"kernel flood_fill on {what}: {flood_ms[what]:.4f} ms/call "
+            f"(CUDA events, 50 calls) on {card}")
+    open_init = flood[0][1]
     timed("flood_fill", lambda: gk.propagate_fixpoint(open_init, False),
-          lambda: gk.propagate_fixpoint_plain(open_init, False))
+          lambda: gk.propagate_fixpoint_plain(open_init, False), reps=50)
     work["flood_fill"] = (8 * n_vox, 6 * n_vox)
+    geo = gk.flood_fill_geometry(grid)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for step in gk.FLOOD_STEPS:
+        g = geo[step]
+        say(f"geometry flood_fill {step}: {g['blocks']} blocks of "
+            f"{g['threads']} threads, {g['smem_bytes']} B static shared, "
+            f"{g['registers']} registers, {g['blocks_per_sm']} blocks/SM on "
+            f"{sms} SMs: {g['blocks'] / (g['blocks_per_sm'] * sms):.2f} "
+            f"waves; {len(gk.FLOOD_STEPS)} launches a call, tile "
+            f"{geo['tile']} (grid {grid})")
 
     sv = (frac, cell, radii, 1.2, dirs, grid, sp["nbx"], sp["nby"],
           sp["window"], sp["chunk"], sp["col_cap"])
@@ -898,7 +951,7 @@ def pore_kernel_checks(pb, slab_pb, meta, dev):
     work["surface_valid_columns"] = (
         20 * n + 20 * slay.blockers.shape[1] + 9 * n * k,
         float(np.sum((his - los) * k * (40 + 16 * b_rows[cols]))))
-    return res, work, all_rows_ms
+    return res, work, all_rows_ms, (geo, flood_ms)
 
 
 def pore_main(pb, dev):
@@ -1551,8 +1604,9 @@ def main():
     _, _, pmeta = BatchedPore(**PORE).prepare(pb, device=dev)
     say(f"pore plan: grid {pmeta['grid']}, masks {pmeta['col_plan']}, "
         f"surface {pmeta['surf_plan']}, K {pmeta['k']}")
-    pchecks, pwork, masks_all_rows_ms = pore_kernel_checks(
-        pb, pore_batch_of(batch, 1, squeeze=0.72), pmeta, dev)
+    pchecks, pwork, masks_all_rows_ms, (geometry["flood_fill"],
+                                        flood_ms) = pore_kernel_checks(
+        pb, pore_batch_of(batch, 1, squeeze=0.72), pmeta, dev, card)
     checks.update(pchecks)
     work.update(pwork)
     (checks["warmup_copy"], clone_ms, copy_ms, host_us,
@@ -1658,6 +1712,8 @@ def main():
             kernels[-1]["copy_ms"] = copy_ms
         if name == "void_masks_points":
             kernels[-1]["bound_ms_all_rows"] = masks_all_rows_ms
+        if name == "flood_fill":
+            kernels[-1]["cases_ms"] = flood_ms
         if name in geometry:
             kernels[-1]["geometry"] = geometry[name]
         say(f"bound {name}: {bound_ms:.4f} ms ({bound_by}; "

@@ -314,18 +314,49 @@ def test_surface_kernel_matches_plain(cuda, triclinic, k, window, col_cap,
         assert_same(got, ref)
 
 
+def serpentine(shape):
+    """A one-voxel-wide path through many of kernel #7's tiles (as in
+    tests/test_torch_flood_tiles.py): full z rows at even y of each even x
+    layer, joined at alternate ends; layers joined through the odd x layer
+    between them, alternately at the path's end and start."""
+    gx, gy, gz = shape
+    m = np.zeros(shape, bool)
+    rows = list(range(0, gy, 2))
+    for x in range(0, gx, 2):
+        for j, y in enumerate(rows):
+            m[x, y, :] = True
+            if j + 1 < len(rows):
+                m[x, y + 1, gz - 1 if j % 2 == 0 else 0] = True
+        if x + 2 < gx:
+            at_end = (x // 2) % 2 == 0
+            y, z = ((rows[-1], gz - 1 if len(rows) % 2 else 0) if at_end
+                    else (0, 0))
+            m[x + 1, y, z] = True
+    return m
+
+
+FLOOD_CASES = [(shape, frac) for shape in ((16, 12, 20), (9, 13, 7),
+                                           (1, 33, 64), (40, 40, 40))
+               for frac in (0.3, 0.6)] + [
+    ((17, 5, 33), 0.6), ((2, 17, 19), 0.6), ((9, 2, 35), 0.6),
+    ((17, 20, 40), "serpentine"), ((112, 112, 112), 0.008),
+    ((112, 112, 112), 0.23)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(16, 12, 20), (9, 13, 7), (1, 33, 64),
-                                   (40, 40, 40)])
-@pytest.mark.parametrize("frac", [0.3, 0.6])
+@pytest.mark.parametrize("shape,frac", FLOOD_CASES)
 @pytest.mark.parametrize("periodic", [False, True])
 def test_flood_fill_kernel_matches_plain(cuda, shape, frac, periodic):
     """Kernel #7 vs the plain sweeps: linear-index init (component
-    labels) and {1, 0, -1} init (channel propagation)."""
+    labels) and {1, 0, -1} init (channel propagation), on random masks
+    (ragged, with axes of length 1 and 2; the bench grid at 0.8% and 23%)
+    and a serpentine path; ten repeated calls give equal outputs, whatever
+    order the atomics land in."""
     from amof_tpu_torch.pore import grid_kernel
 
     rng = np.random.default_rng(sum(shape))
-    mask = rng.random(shape) < frac
+    mask = (serpentine(shape) if frac == "serpentine"
+            else rng.random(shape) < frac)
     lin = np.where(mask, np.arange(mask.size).reshape(shape), -1)
     seeds = mask & (rng.random(shape) < 0.01)
     tern = np.where(seeds, 1, np.where(mask, 0, -1))
@@ -334,6 +365,24 @@ def test_flood_fill_kernel_matches_plain(cuda, shape, frac, periodic):
         got = grid_kernel.propagate_fixpoint(t, periodic)
         ref = grid_kernel.propagate_fixpoint_plain(t, periodic)
         assert_same([got], [ref])
+        for _ in range(10):
+            assert_same([grid_kernel.propagate_fixpoint(t, periodic)], [got])
+
+
+@pytest.mark.cuda
+def test_flood_fill_geometry_matches_wrapper(cuda):
+    """The CUDA source's tile and scratch size are the wrapper's."""
+    from amof_tpu_torch.pore import grid_kernel
+
+    for shape in ((112, 112, 112), (16, 512, 512), (9, 13, 7)):
+        geo = grid_kernel.flood_fill_geometry(shape)
+        assert geo["tile"] == grid_kernel.FLOOD_TILE
+        assert geo["scratch_ints"] == (np.prod(shape)
+                                       + grid_kernel.flood_tiles(shape))
+        for step in grid_kernel.FLOOD_STEPS:
+            assert geo[step]["blocks"] == grid_kernel.flood_tiles(shape)
+            assert geo[step]["registers"] > 0
+            assert geo[step]["blocks_per_sm"] > 0
 
 
 @pytest.mark.cuda
