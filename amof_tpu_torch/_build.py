@@ -71,9 +71,10 @@ _SIGNATURES = {
         _P, _P, _P, _P,
     ),
     "surface_columns_launch": (
-        _P, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P,
-        _I, _F, _F, _I, _I, _I, _P, _P, _P, _P,
+        _P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P,
+        _P, _I, _F, _F, _I, _I, _I, _P, _P, _P, _P,
     ),
+    "surface_columns_geometry": (_I, _P),
     "flood_fill_launch": (_P, _I, _I, _I, _I, _P, _P, _P),
     "flood_fill_geometry": (_I, _I, _I, _P),
     "warmup_copy_launch": (_P, _P, _I, _P),

@@ -624,6 +624,80 @@ def active_slots(lay: SurfaceLayout, n_z: int, chunk: int):
     return col[act], lo[act], hi[act]
 
 
+# (center, direction) items one group of kernel #6 holds at most
+SURFACE_ITEMS = 32
+
+
+def surface_group_size(k: int) -> int:
+    """Centers in one group of kernel #6 (a block takes one at a time) at ``k``
+    directions: as many as fill ``SURFACE_ITEMS`` items, 1 to 32."""
+    return max(1, min(32, SURFACE_ITEMS // k))
+
+
+def surface_groups(lay: SurfaceLayout, n_z: int, chunk: int, group: int):
+    """(column, first row, end row) of every group of kernel #6: each
+    active slot's nc candidate rows in min(nc, P) runs of near-equal size
+    (P = ceil(chunk / group), so few candidates spread over z go one or
+    two a group), then its other rows in runs of ``group`` (each group is
+    sorted in z)."""
+    cols, los, his = active_slots(lay, n_z, chunk)
+    ce = lay.cand_end.cpu().numpy().astype(np.int64)
+    places = -(-chunk // group)
+    out = []
+    for col, lo, hi in zip(cols, los, his):
+        nc = min(hi, ce[col]) - lo
+        ncg = min(nc, places)
+        out += [(col, lo + i * nc // ncg, lo + (i + 1) * nc // ncg)
+                for i in range(ncg)]
+        out += [(col, g0, min(g0 + group, hi))
+                for g0 in range(lo + nc, hi, group)]
+    arr = np.array(out, np.int64).reshape(-1, 3)
+    return arr[:, 0], arr[:, 1], arr[:, 2]
+
+
+def surface_z_window(lay: SurfaceLayout, cell, dirs, r_probe: float,
+                     n_z: int, chunk: int, group: int, window: int):
+    """Plain twin of kernel #6's z cut, for tests (never on the card's
+    path): ((cols, g0s, g1s) of ``surface_groups``, keep bool[G, 3 *
+    window]), the blocker rows (in ``_gather_runs`` order of the group's
+    column) that the kernel stages for each group. With [a, b] the
+    group's fractional z range, P the largest |R_i + probe| |dir_k| of its
+    points and t_j = |R_j + probe - 1e-4|, a row of the column's runs is
+    kept iff its periodic fractional distance to [a, b] is below (t_j + P
+    + mu) / h_z + 2^-20 (h_z, mu as ``_z_cut_geometry``); a degenerate
+    cell (h_z = 0) keeps every row. The exactness argument is in the
+    kernel's header."""
+    dev = lay.centers.device
+    cols, g0s, g1s = surface_groups(lay, n_z, chunk, group)
+    hz, mu = _z_cut_geometry(cell)
+    col_t = torch.as_tensor(cols, device=dev)
+    (_, _, fz, r, _), ok = _gather_runs(lay.blockers, lay.b_start[col_t],
+                                        lay.b_count[col_t], window)
+    if not hz > 0.0:
+        return (cols, g0s, g1s), ok
+    inv_hz = float(np.float32(1.0 / hz))
+    rp = float(np.float32(r_probe))
+    peps = float(np.float32(r_probe) - np.float32(1e-4))
+    d64 = dirs.detach().cpu().double()
+    dn = float(torch.sqrt((d64 * d64).sum(dim=1)).max())
+    g_idx = torch.as_tensor(g0s, device=dev)[:, None] + torch.arange(
+        group, device=dev)
+    live = g_idx < torch.as_tensor(g1s, device=dev)[:, None]
+    g_idx = torch.clamp(g_idx, max=lay.centers.shape[1] - 1)
+    fzc = lay.centers[2][g_idx]
+    inf = torch.full_like(fzc, math.inf)
+    a = torch.where(live, fzc, inf).amin(dim=1)[:, None]
+    b = torch.where(live, fzc, -inf).amax(dim=1)[:, None]
+    rx = torch.abs(lay.centers[3][g_idx] + rp)
+    reach_add = (torch.where(live, rx, torch.zeros_like(rx)).amax(
+        dim=1).double() * dn + mu).float()[:, None]
+    d = torch.where(fz < a, a - fz,
+                    torch.where(fz > b, fz - b, torch.zeros_like(fz)))
+    d = torch.minimum(d, torch.minimum(fz + 1.0 - b, a + 1.0 - fz))
+    near = ~(d >= (torch.abs(r + peps) + reach_add) * inv_hz + _SIGMA)
+    return (cols, g0s, g1s), ok & near
+
+
 def surface_valid_tiles_plain(lay: SurfaceLayout, cell, inv_cell, dirs,
                               r_probe: float, grid, nbx: int, nby: int,
                               window: int, n_z: int, chunk: int,

@@ -14,7 +14,10 @@ Counterpart of ``amof_tpu/pore/surface_kernel.py``:
   * ``surface_valid_columns`` replaces ``surface_valid_columns_pallas``
     (kernel #6, ``csrc/surface_columns.cu``): per slot of ``chunk``
     column-sorted centers holding a candidate atom, the K sphere points'
-    validity against the column's blocker runs, and their voxel indices.
+    validity against the column's blocker runs, and their voxel indices;
+    the kernel takes groups of consecutive centers and stages only the
+    blocker rows that can reach the group's points in z (plain twin of
+    that cut: ``grid_kernel.surface_z_window``).
 
 Each wrapper builds the sorted layout in torch (``grid_kernel``'s
 ``masks_layout`` / ``surface_layout``), checks its inputs, and launches
@@ -145,25 +148,44 @@ def surface_valid_columns(frac_atoms, cell, radii, r_probe, dirs, grid,
 
 def _launch_surface(lay, cell, inv_cell, dirs, r_probe, grid, nbx, nby,
                     n_z, chunk):
+    """Kernel #6 on a prepared layout. The kernel writes every row of its
+    outputs, so nothing is cleared first."""
     from amof_tpu_torch import _build
 
     dev = cell.device
     n = lay.centers.shape[1]
     k = dirs.shape[0]
-    valid = torch.zeros((n, k), dtype=torch.bool, device=dev)
-    i_pt = torch.zeros((n, k), dtype=torch.int32, device=dev)
-    i_nu = torch.zeros((n, k), dtype=torch.int32, device=dev)
+    valid = torch.empty((n, k), dtype=torch.bool, device=dev)
+    i_pt = torch.empty((n, k), dtype=torch.int32, device=dev)
+    i_nu = torch.empty((n, k), dtype=torch.int32, device=dev)
     rp = float(np.float32(r_probe))
     peps = float(np.float32(r_probe) - np.float32(1e-4))
     err = _build.library().surface_columns_launch(
         lay.centers.data_ptr(), n, lay.c_bounds.data_ptr(),
         lay.cand_end.data_ptr(), nbx * nby, n_z, chunk,
-        lay.blockers.data_ptr(), lay.blockers.shape[1],
-        lay.b_start.data_ptr(), lay.b_count.data_ptr(), nbx, nby,
-        cell.data_ptr(), inv_cell.data_ptr(), dirs.data_ptr(),
-        lay.nudge.data_ptr(), k, rp, peps, *grid,
+        grid_kernel.surface_group_size(k), lay.blockers.data_ptr(),
+        lay.blockers.shape[1], lay.b_start.data_ptr(),
+        lay.b_count.data_ptr(), nbx, nby, cell.data_ptr(), inv_cell.data_ptr(),
+        dirs.data_ptr(), lay.nudge.data_ptr(), k, rp, peps, *grid,
         valid.data_ptr(), i_pt.data_ptr(), i_nu.data_ptr(),
         _build.stream_ptr(cell))
     _build.check(err, "surface_valid_columns")
     LAUNCHES["surface_valid_columns"] += 1
     return valid, i_pt, i_nu
+
+
+def surface_columns_geometry(n_cols: int) -> dict:
+    """What kernel #6's launch gets for ``n_cols`` columns on the current
+    card: blocks (the persistent grid), threads, smem_bytes (static and
+    dynamic), registers, blocks_per_sm and cap_rows (rows one flush of the
+    staging holds), as the CUDA source computes them."""
+    import ctypes
+
+    from amof_tpu_torch import _build
+
+    geo = (ctypes.c_int * 6)()
+    _build.check(_build.library().surface_columns_geometry(n_cols, geo),
+                 "surface_columns_geometry")
+    keys = ("blocks", "threads", "smem_bytes", "registers", "blocks_per_sm",
+            "cap_rows")
+    return dict(zip(keys, geo))

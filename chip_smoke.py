@@ -42,7 +42,12 @@ trajectory): phase 3 checks kernel #5 (void masks and MC fits, on
 bench frames 0-2 and on the void-slab frame below; its bound counts only
 the candidate pairs within reach in 3-D, the all-rows bound printed beside
 it),
-#6 (surface blockers) and #7 (flood fill: both calls of the chain on bench
+#6 (surface blockers: bench frame 0 under its channel mask, as the pore
+step calls it, and with every atom, and the void-slab frame under its
+mask; each case timed, with the rows its z cut keeps; the first also
+under the profiler, with a geometry line; its bound counts only the
+(point, blocker) pairs within reach in 3-D, the all-rows bound printed
+beside it) and #7 (flood fill: both calls of the chain on bench
 frame 0 and on the void-slab frame, and a (16, 512, 512) grid, where the
 JAX package would take kernel #8; each case timed, with a geometry line
 per launch) against their plain versions; phase 4 runs the pore step on
@@ -585,6 +590,27 @@ def profiled(run, n_frames, title, out_name):
     return share
 
 
+def device_us(fn, name, reps):
+    """Mean device time (us) per call of ``fn`` of the kernels whose name
+    holds ``name``, under torch.profiler over ``reps`` calls after one
+    warm-up; None where the profiler saw no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    t = sum(e.self_device_time_total for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and name in e.key)
+    return t / reps if t > 0 else None
+
+
 def profile_step(batch, dev, n_frames=16):
     """Device time by kernel name over a short fused run (no MSD)."""
     from amof_tpu_torch.parallel.pipeline import FusedAnalysis
@@ -766,6 +792,82 @@ def void_masks_work(lay, cell, grid, cp, thr, pts, hi, fit, tile_batch=32):
             all_rows, (vox_pairs, col_pairs, pt_pairs))
 
 
+def surface_work(slay, cell, dirs, sp, n_z, r_probe=1.2, slot_batch=4):
+    """(bytes, f32 operations, all-rows operations, counts) of one call of
+    kernel #6 on a prepared layout. Bytes: each input read once (centers,
+    blockers, column bounds, runs) and each output written once (9 B a
+    point). Operations: 40 a point plus 16 a (point, blocker) pair that
+    the kernel cannot skip, those within R_j + probe + mu of the point
+    (float64, minimum image; mu the z cut's margin), the atom itself
+    excepted; a kernel with a z cut and an early exit may test fewer rows
+    than the all-rows count (every row of the column's three runs, the
+    bound of the earlier one-block-per-slot kernel). ``counts``: active
+    slots, groups, candidate and non-candidate centers of active slots,
+    rows a group keeps after the z cut (mean, min, max; its plain twin),
+    all rows a group, tests an item with and without the cut, pairs."""
+    import numpy as np
+    import torch
+
+    from amof_tpu_torch.pore import grid_kernel as gk
+
+    dev = cell.device
+    chunk, window = sp["chunk"], sp["window"]
+    n, m = slay.centers.shape[1], slay.blockers.shape[1]
+    k = dirs.shape[0]
+    cols, los, his = gk.active_slots(slay, n_z, chunk)
+    ce = slay.cand_end.cpu().numpy().astype(np.int64)
+    n_cand = int(np.sum(np.clip(np.minimum(his, ce[cols]) - los, 0, None)))
+    n_rows = int(np.sum(his - los))
+    b_rows = slay.b_count.sum(dim=1).cpu().numpy().astype(np.float64)
+    (gcols, g0s, g1s), keep = gk.surface_z_window(
+        slay, cell, dirs, r_probe, n_z, chunk, gk.surface_group_size(k),
+        window)
+    kept = keep.sum(dim=1).cpu().numpy().astype(np.float64)
+    sizes = (g1s - g0s).astype(np.float64)
+    _, mu = gk._z_cut_geometry(cell)
+    c64, inv64 = cell.double(), torch.linalg.inv(cell.double())
+    d64 = dirs.double()
+    rp = float(np.float32(r_probe))
+    pairs = 0
+    for s0 in range(0, len(cols), slot_batch):
+        col = torch.as_tensor(cols[s0:s0 + slot_batch], device=dev)
+        lo = torch.as_tensor(los[s0:s0 + slot_batch], device=dev)
+        hi = torch.as_tensor(his[s0:s0 + slot_batch], device=dev)
+        rows = lo[:, None] + torch.arange(chunk, device=dev)
+        live = rows < hi[:, None]
+        rows = torch.clamp(rows, max=n - 1)
+        fc = torch.stack([slay.centers[i][rows] for i in range(3)],
+                         -1).double()
+        ra = slay.centers[3][rows].double()
+        cg = slay.centers[4][rows]
+        p = (fc @ c64)[:, :, None, :] + (ra + rp)[:, :, None, None] * d64
+        fp = p @ inv64
+        (bx, by, bz, br, bg), ok = gk._gather_runs(
+            slay.blockers, slay.b_start[col], slay.b_count[col], window)
+        fb = torch.stack([bx, by, bz], -1).double()  # [a, 3W, 3]
+        df = fp[:, :, :, None, :] - fb[:, None, None, :, :]
+        df = df - torch.round(df)
+        dist = torch.linalg.vector_norm(df @ c64, dim=-1)  # [a, CH, K, 3W]
+        near = (dist < (br.double() + r_probe + mu)[:, None, None, :]) \
+            & ok[:, None, None, :] & (bg[:, None, :] != cg[:, :, None])[
+                :, :, None, :] & live[:, :, None, None]
+        pairs += int(near.sum())
+        del df, dist, near
+    points = n_rows * k
+    counts = {
+        "slots": len(cols), "groups": len(gcols), "cand": n_cand,
+        "non_cand": n_rows - n_cand, "kept_mean": float(kept.mean()),
+        "kept_min": int(kept.min()), "kept_max": int(kept.max()),
+        "rows_mean": float(b_rows[gcols].mean()),
+        "tests_cut": float(np.sum(sizes * kept) / np.sum(sizes)),
+        "tests_all": float(np.sum((his - los) * b_rows[cols]) / n_rows),
+        "pairs": pairs}
+    n_bytes = (20 * n + 20 * m + 8 * slay.c_bounds.numel()
+               + 24 * slay.b_start.shape[0] + 9 * points)
+    all_ops = float(np.sum((his - los) * k * (40 + 16 * b_rows[cols])))
+    return n_bytes, 40 * points + 16 * pairs, all_ops, counts
+
+
 def flood_occupied(mask):
     """How many of kernel #7's tiles hold a voxel of ``mask``."""
     import torch
@@ -784,10 +886,13 @@ def pore_kernel_checks(pb, slab_pb, meta, dev, card):
     """Phase 3, pore: kernel #5 against its plain version on bench frames
     0-2 and on frame 0 of the void slab, #7 on both calls of the chain on
     bench frame 0 and the void-slab frame and on a (16, 512, 512) grid
-    (each case timed, with its launches' geometry), #6 on bench frame 0,
-    at the bench pore shapes. Returns ({name: (max_abs_err, ms,
-    plain_ms)}, {name: (bytes, operations)}, #5's all-rows bound ms,
-    (#7's geometry, #7's ms by case))."""
+    (each case timed, with its launches' geometry), #6 on bench frame 0
+    under its channel mask and with every atom and on the void-slab frame
+    under its channel mask (each timed, with the rows its z cut keeps; the
+    first also under the profiler, with its geometry), at the bench pore
+    shapes. Returns ({name: (max_abs_err, ms,
+    plain_ms)}, {name: (bytes, operations)}, {name: more keys of its
+    kernel JSON}: all-rows bounds, times by case, geometry)."""
     import numpy as np
     import torch
 
@@ -926,32 +1031,72 @@ def pore_kernel_checks(pb, slab_pb, meta, dev, card):
             f"waves; {len(gk.FLOOD_STEPS)} launches a call, tile "
             f"{geo['tile']} (grid {grid})")
 
-    sv = (frac, cell, radii, 1.2, dirs, grid, sp["nbx"], sp["nby"],
-          sp["window"], sp["chunk"], sp["col_cap"])
-    for cand in (m_chan, None):
+    # kernel #6 on three inputs: bench frame 0 under its channel mask (the
+    # pore step's call), bench frame 0 with every atom, and the void slab
+    # under its channel mask (a surface with real work)
+    n_z = -(-sp["col_cap"] // sp["chunk"])
+    surf_ms, surf = {}, {}
+    for what, inp, cand in (
+            ("bench frame 0, prefiltered", cases[0][1], m_chan),
+            ("bench frame 0, every atom", cases[0][1], None),
+            ("void-slab frame 0, prefiltered", cases[3][1],
+             chan["void-slab frame 0"])):
+        frac, cell, inv, radii, dirs, _ = inp
+        sv = (frac, cell, radii, 1.2, dirs, grid, sp["nbx"], sp["nby"],
+              sp["window"], sp["chunk"], sp["col_cap"])
         got = sk.surface_valid_columns(*sv, cand_mask=cand, inv_cell=inv)
         ref = gk.surface_valid_columns(*sv, cand_mask=cand, inv_cell=inv)
         torch.cuda.synchronize()
-        equal("surface_valid_columns", got, ref,
-              "prefiltered" if cand is not None else "every atom")
-    slay = gk.surface_layout(frac, inv, radii, 1.2, dirs, grid, sp["nbx"],
-                             sp["nby"], sp["window"], sp["col_cap"], m_chan)
-    n_z = -(-sp["col_cap"] // sp["chunk"])
-    cols, los, his = gk.active_slots(slay, n_z, sp["chunk"])
-    say(f"surface: {len(cols)} of {sp['nbx'] * sp['nby'] * n_z} slots hold "
-        f"a candidate atom; {int(ref[0].sum())} valid points unfiltered")
-    sa = (slay, cell, inv, dirs, 1.2, grid, sp["nbx"], sp["nby"])
-    timed("surface_valid_columns",
-          lambda: sk._launch_surface(*sa, n_z, sp["chunk"]),
-          lambda: gk.surface_valid_tiles_plain(*sa, sp["window"], n_z,
+        equal("surface_valid_columns", got, ref, what)
+        slay = gk.surface_layout(frac, inv, radii, 1.2, dirs, grid,
+                                 sp["nbx"], sp["nby"], sp["window"],
+                                 sp["col_cap"], cand)
+        sa = (slay, cell, inv, dirs, 1.2, grid, sp["nbx"], sp["nby"], n_z,
+              sp["chunk"])
+        n_bytes, ops, all_ops, cnt = surface_work(slay, cell, dirs, sp, n_z)
+        surf[what] = (sa, n_bytes, ops, all_ops)
+        say(f"surface, {what}: {cnt['slots']} of "
+            f"{sp['nbx'] * sp['nby'] * n_z} slots active, {cnt['groups']} "
+            f"groups; {cnt['cand']} candidate and {cnt['non_cand']} "
+            f"non-candidate centers in active slots; rows kept a group "
+            f"{cnt['kept_mean']:.1f} (min {cnt['kept_min']}, max "
+            f"{cnt['kept_max']}) of {cnt['rows_mean']:.1f}; tests an item "
+            f"{cnt['tests_cut']:.1f} with the cut, {cnt['tests_all']:.1f} "
+            f"over all rows; {cnt['pairs']} (point, blocker) pairs within "
+            f"reach; {int(ref[0].sum())} valid points (equal to plain)")
+        surf_ms[what] = cuda_ms(lambda: sk._launch_surface(*sa), reps=10,
+                                warmup=2)
+        say(f"kernel surface_valid_columns on {what}: "
+            f"{surf_ms[what]:.4f} ms/call (CUDA events, 10 calls) on {card}")
+    what = "bench frame 0, prefiltered"
+    sa, n_bytes, ops, all_ops = surf[what]
+    timed("surface_valid_columns", lambda: sk._launch_surface(*sa),
+          lambda: gk.surface_valid_tiles_plain(*sa[:8], sp["window"], n_z,
                                                sp["chunk"]))
-    b_rows = slay.b_count.sum(dim=1).cpu().numpy()
-    k = dirs.shape[0]
-    n = frac.shape[0]
-    work["surface_valid_columns"] = (
-        20 * n + 20 * slay.blockers.shape[1] + 9 * n * k,
-        float(np.sum((his - los) * k * (40 + 16 * b_rows[cols]))))
-    return res, work, all_rows_ms, (geo, flood_ms)
+    dev_us = device_us(lambda: sk._launch_surface(*sa), "surface_columns",
+                       reps=10)
+    say(f"kernel surface_valid_columns on {what}: device "
+        f"{dev_us if dev_us is None else round(dev_us, 2)} us/call "
+        f"(torch.profiler, 10 calls) on {card}")
+    work["surface_valid_columns"] = (n_bytes, ops)
+    surf_all_ms = bound(n_bytes, all_ops)[0]
+    say(f"surface_valid_columns work ({what}): {n_bytes:.4e} B, {ops:.4e} "
+        f"f32 ops over the pairs within reach; every row: {all_ops:.4e} "
+        f"ops, bound {surf_all_ms:.4f} ms")
+    sgeo = sk.surface_columns_geometry(sp["nbx"] * sp["nby"])
+    say(f"geometry surface_valid_columns: {sgeo['blocks']} blocks (a "
+        f"persistent grid over the groups) of {sgeo['threads']} threads, "
+        f"{sgeo['smem_bytes']} B shared ({sgeo['cap_rows']} rows a flush), "
+        f"{sgeo['registers']} registers, "
+        f"{sgeo['blocks_per_sm']} blocks/SM on {sms} SMs: "
+        f"{sgeo['blocks'] / (sgeo['blocks_per_sm'] * sms):.2f} waves")
+    extras = {
+        "void_masks_points": {"bound_ms_all_rows": all_rows_ms},
+        "flood_fill": {"cases_ms": flood_ms, "geometry": geo},
+        "surface_valid_columns": {
+            "bound_ms_all_rows": surf_all_ms, "cases_ms": surf_ms,
+            "device_us": dev_us, "geometry": sgeo}}
+    return res, work, extras
 
 
 def pore_main(pb, dev):
@@ -1604,8 +1749,7 @@ def main():
     _, _, pmeta = BatchedPore(**PORE).prepare(pb, device=dev)
     say(f"pore plan: grid {pmeta['grid']}, masks {pmeta['col_plan']}, "
         f"surface {pmeta['surf_plan']}, K {pmeta['k']}")
-    pchecks, pwork, masks_all_rows_ms, (geometry["flood_fill"],
-                                        flood_ms) = pore_kernel_checks(
+    pchecks, pwork, pextras = pore_kernel_checks(
         pb, pore_batch_of(batch, 1, squeeze=0.72), pmeta, dev, card)
     checks.update(pchecks)
     work.update(pwork)
@@ -1710,10 +1854,7 @@ def main():
                                        else None)})
         if name == "warmup_copy":
             kernels[-1]["copy_ms"] = copy_ms
-        if name == "void_masks_points":
-            kernels[-1]["bound_ms_all_rows"] = masks_all_rows_ms
-        if name == "flood_fill":
-            kernels[-1]["cases_ms"] = flood_ms
+        kernels[-1].update(pextras.get(name, {}))
         if name in geometry:
             kernels[-1]["geometry"] = geometry[name]
         say(f"bound {name}: {bound_ms:.4f} ms ({bound_by}; "

@@ -295,9 +295,12 @@ def test_void_masks_z_slabs_match_plain(cuda, gz, triclinic, probe, chan):
                                                      (8, 60, 64, True)])
 def test_surface_kernel_matches_plain(cuda, triclinic, k, window, col_cap,
                                       missed):
-    """Kernel #6 vs its plain version, with and without the candidate
-    prefilter, including too-small windows and column capacities."""
-    from amof_tpu_torch.pore import grid_kernel, surface_kernel
+    """Kernel #6 vs its plain version on a void-slab system, with and
+    without the candidate prefilter, including too-small windows and
+    column capacities; ten repeated calls give equal outputs, and rows
+    outside the active slots are False / 0 though the outputs are not
+    cleared before the launch."""
+    from amof_tpu_torch.pore import grid_kernel
 
     frac, cell, radii = pore_system(900, 22.0, 9, triclinic)
     grid = (24, 24, 24)
@@ -306,12 +309,62 @@ def test_surface_kernel_matches_plain(cuda, triclinic, k, window, col_cap,
     f, c, r, d, m = on(cuda, frac, cell, radii, dirs, cand)
     for cand_mask in (None, m):
         args = (f, c, r, 1.2, d, grid, 3, 3, window, 64, col_cap)
-        got = surface_kernel.surface_valid_columns(*args,
-                                                   cand_mask=cand_mask)
-        ref = grid_kernel.surface_valid_columns(*args, cand_mask=cand_mask)
+        ref, active = check_surface(args, cand_mask)
         assert bool(ref[5]) == missed
         assert int(ref[0].sum()) > 0
-        assert_same(got, ref)
+        if missed:  # rows past n_z * chunk of an overfull column
+            assert not bool(active.all())
+
+
+def check_surface(args, cand_mask, repeats=10):
+    """Kernel #6 against its plain version: equal outputs, also over
+    ``repeats`` more calls into memory the allocator last gave to a
+    tensor of -1s, and rows outside the active slots False / 0. Returns
+    (plain outputs, bool[N] rows in active slots)."""
+    from amof_tpu_torch.pore import grid_kernel, surface_kernel
+
+    f, c, r, probe, d, grid, nbx, nby, window, chunk, col_cap = args
+    ref = grid_kernel.surface_valid_columns(*args, cand_mask=cand_mask)
+    n, k = ref[0].shape
+    for _ in range(repeats + 1):
+        junk = torch.full((3 * n * k,), -1, dtype=torch.int32, device=f.device)
+        del junk
+        assert_same(surface_kernel.surface_valid_columns(
+            *args, cand_mask=cand_mask), ref)
+    lay = grid_kernel.surface_layout(f, grid_kernel.host_inverse(c), r,
+                                     probe, d, grid, nbx, nby, window,
+                                     col_cap, cand_mask)
+    _, los, his = grid_kernel.active_slots(lay, -(-col_cap // chunk), chunk)
+    active = torch.zeros(n, dtype=torch.bool, device=f.device)
+    for lo, hi in zip(los, his):
+        active[lo:hi] = True
+    assert not bool(ref[0][~active].any())
+    assert not bool(ref[1][~active].any() or ref[2][~active].any())
+    return ref, active
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("squeeze", [1.0, 0.72])
+@pytest.mark.parametrize("k", [8, 28])
+def test_surface_kernel_on_crowded_columns(cuda, squeeze, k):
+    """Kernel #6 on 4608 atoms at the bench glass's density (0.062 / A^3)
+    in 3 x 3 columns of over 64 centers (ten slots of 64 a column), dense
+    and with a void slab, with and without the prefilter; ten repeated
+    calls."""
+    from amof_tpu_torch.pore import grid_kernel
+
+    frac, cell, radii = pore_system(4608, 42.0, 21, squeeze=squeeze)
+    grid = (24, 24, 24)
+    dirs = grid_kernel.fibonacci_sphere(k)
+    cand = np.random.default_rng(22).random(grid) < 0.05
+    f, c, r, d, m = on(cuda, frac, cell, radii, dirs, cand)
+    args = (f, c, r, 1.2, d, grid, 3, 3, 2048, 64, 640)
+    lay = grid_kernel.surface_layout(f, grid_kernel.host_inverse(c), r, 1.2,
+                                     d, grid, 3, 3, 2048, 640)
+    assert int((lay.c_bounds[1:] - lay.c_bounds[:-1]).min()) > 64
+    for cand_mask in (None, m):
+        ref, _ = check_surface(args, cand_mask)
+        assert not bool(ref[5]) and int(ref[0].sum()) > 0
 
 
 def serpentine(shape):
@@ -408,9 +461,13 @@ def test_pore_wrappers_count_launches(cuda):
 
 @pytest.mark.cuda
 def test_pore_kernels_multi_pass_staging(cuda):
-    """More candidate rows than one shared-memory pass holds (#5: 192 kept
-    rows of a z slab, #6: 1024): the kernels AND later passes into what
-    the first wrote."""
+    """More candidate rows than one shared-memory pass holds. #5: 192 kept
+    rows of a z slab; later passes AND into what the first wrote. #6:
+    columns of over 1024 rows of small atoms, whose groups keep some
+    hundreds of rows each after the z cut, and a cell 1 A thin in z where
+    every group's reach covers all of z and keeps all 9000 rows of its
+    runs, nine times the 1024 that the kernel stages at once: each later
+    flush of the staging ANDs into what the first wrote."""
     from amof_tpu_torch.pore import grid_kernel, surface_kernel
 
     frac, cell, radii = pore_system(6000, 20.0, 12, squeeze=1.0)
@@ -439,4 +496,21 @@ def test_pore_kernels_multi_pass_staging(cuda):
                                      dirs, (32, 32, 32), 3, 3, 4096, 896)
     assert int(lay.b_count.sum(dim=1).min()) > 1024
     assert not bool(ref[5]) and int(ref[0].sum()) > 0
+    assert_same(got, ref)
+
+    rng = np.random.default_rng(14)
+    frac = rng.random((9000, 3)).astype(np.float32)
+    cell = np.diag([36.0, 36.0, 1.0]).astype(np.float32)
+    radii = rng.uniform(0.1, 0.2, 9000).astype(np.float32)
+    f, c, r = on(cuda, frac, cell, radii)
+    grid = (24, 24, 4)
+    sv = (f, c, r, 0.1, dirs, grid, 3, 3, 3072, 64, 1088)
+    lay = grid_kernel.surface_layout(f, grid_kernel.host_inverse(c), r, 0.1,
+                                     dirs, grid, 3, 3, 3072, 1088)
+    _, keep = grid_kernel.surface_z_window(
+        lay, c, dirs, 0.1, 17, 64, grid_kernel.surface_group_size(8), 3072)
+    assert int(keep.sum(dim=1).min()) == 9000 > 8 * 1024
+    got = surface_kernel.surface_valid_columns(*sv)
+    ref = grid_kernel.surface_valid_columns(*sv)
+    assert not bool(ref[5]) and 0 < int(ref[0].sum()) < ref[0].numel()
     assert_same(got, ref)
