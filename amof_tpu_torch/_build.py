@@ -63,9 +63,9 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
     ),
     "window_table_slab_launch": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-        _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ),
+    "window_table_slab_geometry": (_I, _I, _I, _I, _I, _P),
     "void_masks_launch": (
         _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _I,
         _P, _P, _P, _P,

@@ -14,7 +14,15 @@ Phases, each reported on its own line(s) of standard output:
      Kernel #1 also on a triclinic frame and an order that breaks its
      blocked contract, its root against sqrtf on every float32 in
      [2^-100, FLT_MAX], and the registers (ptxas), resident blocks per SM
-     and waves of kernels #1 and #2;
+     and waves of kernels #1 and #2. Kernel #3 (the slab table) also on
+     bench frame 0 at K 16 (the ``Bad`` entry points' call) and on a
+     crowded frame at K 16 (one Zn with twenty added N neighbours, so
+     cnt > K): each case with CUDA-event, profiler device and host
+     enqueue times and the work its inputs need (``slab_work``: chunks,
+     live centers, kept columns, tests, valid pairs), plus its launch
+     geometry and its launch path piece by piece on the host clock; its
+     bound counts only the (live center, in-range real column) tests, the
+     all-columns bound printed beside it;
   4. the main path: ``FusedAnalysis.run`` at bench.py's configuration
      (256 frames, dtheta 0.05 deg, chunk 256, max_neighbors 8,
      frames_per_call 128, BAD and MSD on). Launch counters are zeroed
@@ -210,10 +218,12 @@ def max_abs_err(got, ref):
     return err
 
 
-def kernel_checks(args, meta, batch, dev, frames=(0, 1, 2),
+def kernel_checks(args, meta, batch, dev, card, frames=(0, 1, 2),
                   window_check=(16, 256, 1408)):
     """Phase 3: every kernel vs its plain version at the main path's
-    shapes. Returns {name: (max_abs_err, ms, plain_ms)}."""
+    shapes. Returns ({name: (max_abs_err, ms, plain_ms)}, {name: more
+    keys of its kernel JSON}, kernel #3's ``slab_work`` counts on bench
+    frame 0 at K 8)."""
     import numpy as np
     import torch
 
@@ -295,6 +305,9 @@ def kernel_checks(args, meta, batch, dev, frames=(0, 1, 2),
             inv_cell=inv[f]),
     )
     say(f"slab plan: {plan._asdict()}")
+    slab_extras, slab_counts = slab_kernel_cases(
+        (layouts[frames[0]][:4], cells[frames[0]], cut, inv[frames[0]], plan),
+        batch, dev, card)
 
     srt = {}
     for f in frames:
@@ -307,7 +320,166 @@ def kernel_checks(args, meta, batch, dev, frames=(0, 1, 2),
         lambda f: neighbor_kernel.window_table_plain(
             *srt[f], cells[f], cut, *window_check, inv_cell=inv[f]),
     )
-    return res
+    return res, {"window_table_slab": slab_extras}, slab_counts
+
+
+def slab_work(lay, plan, k, cnt):
+    """What kernel #3's inputs need: chunks, chunks of fillers only, live
+    centers, kept (in-range) columns a chunk, (live center, in-range real
+    column) tests, valid pairs and rows with cnt > K; for its bytes, the
+    distinct candidate columns whose key a chunk with a live center reads
+    (``key_columns``) and those that some such chunk keeps
+    (``kept_columns``)."""
+    import torch
+
+    from amof_tpu_torch.ops import neighbor_kernel
+
+    centers, cand, starts, qb = lay
+    kept, rows = neighbor_kernel.slab_kept_columns(cand, starts, qb,
+                                                   plan.window)
+    real = (kept & (cand[3][rows] >= 0)).sum(dim=1)
+    per = kept.sum(dim=1).float()
+    live = (centers[:, 3] >= 0).reshape(-1, plan.chunk).sum(dim=1)
+    busy = live > 0
+    return {"chunks": live.numel(), "empty_chunks": int((~busy).sum()),
+            "live_centers": int(live.sum()),
+            "kept_mean": float(per.mean()), "kept_max": int(per.max()),
+            "tests": int((live * real).sum()),
+            "valid_pairs": int(cnt.long().sum()),
+            "rows_over_k": int((cnt > k).sum()),
+            "key_columns": int(torch.unique(rows[busy]).numel()),
+            "kept_columns": int(torch.unique(
+                rows[busy][kept[busy]]).numel())}
+
+
+def host_enqueue_us(fn, reps=10, rounds=5):
+    """Host microseconds a call (perf_counter around ``reps`` calls, no
+    synchronize inside), the median of ``rounds``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out.append(1e6 * (time.perf_counter() - t0) / reps)
+        torch.cuda.synchronize()
+    return sorted(out)[rounds // 2]
+
+
+def slab_launch_path_us(lay, cell, cut, inv, plan, k, reps=2000):
+    """Host microseconds a call of each piece of kernel #3's launch path
+    on ``lay`` at K ``k``: the one allocation, the three output views, the
+    bare ctypes launch, the stream query, and the whole wrapper (whose
+    remainder is its input checks and Python)."""
+    import torch
+
+    from amof_tpu_torch import _build
+    from amof_tpu_torch.ops import neighbor_kernel as nk
+
+    m, m2, s = lay[0].shape[0], lay[1].shape[1], cut.shape[0]
+    dev = lay[0].device
+    buf = torch.empty(m * (4 * k + 1), dtype=torch.int32, device=dev)
+    vals = (*(t.data_ptr() for t in (*lay, cell, inv, cut)), buf.data_ptr(),
+            m, m2, s, k, plan.chunk, plan.window)
+    fn = _build.library().window_table_slab_launch
+    stream = _build.stream_ptr(lay[0])
+    return time_host_pieces({
+        "torch.empty": lambda: torch.empty(m * (4 * k + 1),
+                                           dtype=torch.int32, device=dev),
+        "output views": lambda: nk._slab_views(buf, m, k),
+        "bare ctypes launch": lambda: fn(*vals, stream),
+        "stream_ptr": lambda: _build.stream_ptr(lay[0]),
+        "window_table_slab": lambda: nk.window_table_slab(
+            *lay, cell, cut, k, plan.chunk, plan.window, inv_cell=inv),
+    }, reps)
+
+
+def slab_kernel_cases(frame0, batch, dev, card):
+    """Kernel #3 on the three cases of the fused step and the entry points:
+    bench frame 0 at K 8 (the fused step's call), at K 16 (``Bad`` and
+    ``BadByCn``), and the crowded frame (one Zn with twenty added N
+    neighbours, ``crowd_one_zn``) at K 16. Each is held equal to the plain
+    version and timed: CUDA events (10 calls), device time under the
+    profiler (10 calls) and host enqueue time; a counts line and the
+    launch geometry. Returns (kernel JSON keys, the counts on the fused
+    step's call)."""
+    import torch
+
+    from amof_tpu_torch.ops import neighbor_kernel as nk
+    from amof_tpu_torch.ops import slab_table
+    from amof_tpu_torch.parallel.pipeline import FusedAnalysis
+
+    lay0, cell0, cut, inv0, plan = frame0
+    box = float(batch.cell[0, 0, 0])
+    crowded = crowd_one_zn(excerpt(batch, 1), 0, box)
+    _, cargs, cmeta = FusedAnalysis(CUTOFFS, **BENCH).prepare(crowded,
+                                                              device=dev)
+    cplan = cmeta["bad_slab"]
+    check(cplan is not None, "the crowded frame should get a slab plan")
+    clay = slab_table.build_slab_layout(
+        cargs.positions[0], cargs.species_idx, cargs.cells[0], cplan,
+        inv_cell=cargs.inv_cells[0])
+    cases = {
+        "bench frame 0, K 8": (lay0, cell0, inv0, plan, 8),
+        "bench frame 0, K 16": (lay0, cell0, inv0, plan, 16),
+        "crowded frame, K 16": (clay[:4], cargs.cells[0], cargs.inv_cells[0],
+                                cplan, 16),
+    }
+    ms, dev_us, host_us, counts, geo = {}, {}, {}, {}, {}
+    n_species = cut.shape[0]
+    for what, (lay, cell, inv, pl, k) in cases.items():
+        call = (lambda lay=lay, cell=cell, inv=inv, pl=pl, k=k:
+                nk.window_table_slab(*lay, cell, cut, k, pl.chunk, pl.window,
+                                     inv_cell=inv))
+        got = call()
+        ref = nk.window_table_slab_plain(*lay, cell, cut, k, pl.chunk,
+                                         pl.window, inv_cell=inv)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            check(g.shape == r.shape and g.dtype == r.dtype
+                  and torch.equal(g, r),
+                  f"window_table_slab: kernel != plain on {what}")
+        counts[what] = cnt = slab_work(lay, pl, k, ref[2])
+        if what.startswith("crowded"):
+            check(cnt["rows_over_k"] > 0, "the crowded frame has no cnt > K")
+        ms[what] = cuda_ms(call, reps=10, warmup=2)
+        dev_us[what] = device_us(call, "window_table_slab", reps=10)
+        host_us[what] = host_enqueue_us(call)
+        say(f"slab table, {what}: {cnt['chunks']} chunks, "
+            f"{cnt['empty_chunks']} of fillers only, {cnt['live_centers']} "
+            f"live centers; kept columns a chunk {cnt['kept_mean']:.1f} "
+            f"(max {cnt['kept_max']}) of {3 * pl.window}; {cnt['tests']} "
+            f"(live center, in-range real column) tests; "
+            f"{cnt['valid_pairs']} valid pairs, {cnt['rows_over_k']} rows "
+            f"with cnt > K (equal to plain)")
+        say(f"kernel window_table_slab on {what}: {ms[what]:.4f} ms/call "
+            f"(CUDA events, 10 calls), device "
+            f"{dev_us[what] if dev_us[what] is None else round(dev_us[what], 2)}"
+            f" us/call (torch.profiler), host enqueue {host_us[what]:.2f} "
+            f"us/call on {card}")
+        if k not in geo:
+            geo[k] = g = nk.window_table_slab_geometry(
+                lay[0].shape[0], pl.chunk, k, pl.window, n_species)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            say(f"geometry window_table_slab (K {k}): {g['blocks']} blocks "
+                f"of {g['threads']} threads ({g['cpb']} centers a block, "
+                f"{g['cpw']} a warp), "
+                f"{g['smem_bytes']} B dynamic + {g['static_smem_bytes']} B "
+                f"static shared ({g['cap']} staged columns, "
+                f"{g['pass_columns']} a pass), {g['registers']} registers, "
+                f"{g['blocks_per_sm']} blocks/SM on {sms} SMs: "
+                f"{g['blocks'] / (g['blocks_per_sm'] * sms):.2f} waves")
+    path = slab_launch_path_us(lay0, cell0, cut, inv0, plan, 8)
+    say("launch path window_table_slab (bench frame 0, K 8), host us/call: "
+        + ", ".join(f"{name} {us:.3f}" for name, us in path.items())
+        + f" on {card}")
+    extras = {"cases_ms": ms, "device_us": dev_us, "host_us": host_us,
+              "counts": counts, "launch_path_us": path,
+              "geometry": {f"K {k}": g for k, g in geo.items()}}
+    return extras, counts["bench frame 0, K 8"]
 
 
 def rdf_blocked_side_checks(pos, cell, sp, s, bins):
@@ -638,11 +810,18 @@ def bound(n_bytes, n_ops):
                                        else "operations")
 
 
-def fused_work(args, meta, batch, window_check=(16, 256, 1408)):
+def fused_work(args, meta, batch, slab, window_check=(16, 256, 1408)):
     """(bytes, f32 operations) of one call of kernels #1-#4 at the fused
     step's shapes: each input read once, each output written once; ~26
     operations per atom pair of the histogram, ~35 per candidate test of
-    the neighbour tables (the candidate rows each center scans)."""
+    the neighbour tables: for #4 the candidate rows each center scans,
+    for #3 the (live center, in-range real column) tests that these
+    inputs need (``slab_work`` counts ``slab``). #3 reads five rows of
+    each input matrix: 20 B a center (x, y, z, species, global index), 4
+    B of key for each column in a live chunk's runs and 20 B more for
+    each column that some chunk keeps, the runs' starts and key ranges
+    (36 B a chunk), the cell, its inverse and the cutoffs; it writes
+    (16K + 4) B a center."""
     n = batch.num_atoms
     n_pad = args.positions.shape[1]
     s = len(meta["unique"])
@@ -656,8 +835,10 @@ def fused_work(args, meta, batch, window_check=(16, 256, 1408)):
         "rdf_counts_blocked": (16 * n_pad + hist, 26 * pairs),
         "rdf_counts": (16 * n_pad_u + hist, 26 * pairs),
         "window_table_slab": (
-            32 * plan.m_centers + 32 * plan.m_cand
-            + 16 * k * plan.m_centers, 35 * 3 * plan.window * n),
+            20 * plan.m_centers + 4 * slab["key_columns"]
+            + 20 * slab["kept_columns"] + 36 * slab["chunks"] + 72
+            + 4 * s * s + (16 * k + 4) * plan.m_centers,
+            35 * slab["tests"]),
         "window_table": (16 * n_pad + 16 * kk * n_pad,
                          35 * (chunk + 2 * w) * n_pad),
     }
@@ -1456,7 +1637,7 @@ def host_path_us(src, reps=5000):
         return (src.dtype != torch.float32 or not src.is_contiguous()
                 or n % 4 or ptr % 16)
 
-    pieces = {
+    return time_host_pieces({
         "library()": _build.library,
         "stream_ptr": lambda: _build.stream_ptr(src),
         "bare ctypes launch": lambda: fn(sp, dp, n, stream),
@@ -1465,7 +1646,14 @@ def host_path_us(src, reps=5000):
         "warmup_copy": lambda: warmup_copy(src),
         "src.clone()": src.clone,
         "dst.copy_(src)": lambda: dst.copy_(src),
-    }
+    }, reps)
+
+
+def time_host_pieces(pieces, reps):
+    """Host microseconds a call of each of ``pieces`` (perf_counter over
+    ``reps`` calls after 200 warm-up calls)."""
+    import torch
+
     out = {}
     for name, call in pieces.items():
         for _ in range(200):
@@ -1736,8 +1924,11 @@ def main():
         f"{meta['bad_window']}, ortho {meta['ortho']}")
 
     # 3. kernels vs plain
-    checks = kernel_checks(args, meta, batch, dev)
-    work = fused_work(args, meta, batch)
+    checks, fextras, slab_counts = kernel_checks(args, meta, batch, dev, card)
+    work = fused_work(args, meta, batch, slab_counts)
+    slab_bytes = work["window_table_slab"][0]
+    fextras["window_table_slab"]["bound_ms_all_columns"] = bound(
+        slab_bytes, 35 * 3 * meta["bad_slab"].window * batch.num_atoms)[0]
     geometry = rdf_geometry(args.positions.shape[1],
                             -(-batch.num_atoms // BENCH["chunk"])
                             * BENCH["chunk"], len(meta["unique"]),
@@ -1854,12 +2045,14 @@ def main():
                                        else None)})
         if name == "warmup_copy":
             kernels[-1]["copy_ms"] = copy_ms
-        kernels[-1].update(pextras.get(name, {}))
+        kernels[-1].update(pextras.get(name, fextras.get(name, {})))
         if name in geometry:
             kernels[-1]["geometry"] = geometry[name]
+        every = kernels[-1].get("bound_ms_all_columns")
         say(f"bound {name}: {bound_ms:.4f} ms ({bound_by}; "
-            f"{work[name][0]:.3e} B, {work[name][1]:.3e} f32 ops) vs kernel "
-            f"{ms:.3f} ms on {card}")
+            f"{work[name][0]:.3e} B, {work[name][1]:.3e} f32 ops"
+            + ("" if every is None else f"; all columns {every:.4f} ms")
+            + f") vs kernel {ms:.3f} ms on {card}")
     print(json.dumps({"kernels": kernels, "fused_frames_per_s": fps,
                       "pore_ms_per_frame": pore_ms,
                       "pore_prepare_s": pore_prep,

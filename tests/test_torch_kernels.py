@@ -161,20 +161,114 @@ def test_window_kernel_matches_plain(cuda, k, chunk, window):
     assert_same(got, ref)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k", [4, 16, 1024])
-def test_slab_kernel_matches_plain(cuda, k):
-    pos, cell, sp = case(4096, 3, 4, 40.0, pad_from=4000)
-    plan = slab_table.slab_plan(cell, float(CUTOFF.max()), 4096,
+# bench.py's cutoffs on bench_glass's species (Zn, N, C, H)
+BENCH_CUT = np.zeros((4, 4), np.float32)
+for _a, _b, _c in ((0, 1, 2.0), (2, 2, 1.75), (2, 1, 1.73), (2, 3, 1.3)):
+    BENCH_CUT[_a, _b] = BENCH_CUT[_b, _a] = _c
+
+SLAB_CASES = [("4096 atoms, 3 species", 4), ("4096 atoms, 3 species", 16),
+              ("4096 atoms, 3 species", 128), ("4096 atoms, 3 species", 1024),
+              ("4096 atoms, 3 species", 4096),
+              ("bench", 8), ("bench", 16), ("bench, triclinic", 8),
+              ("bench, crowded", 16), ("empty runs", 8),
+              ("whole-window runs", 8), ("overlapping runs", 8),
+              ("unsorted keys", 8), ("staging flush", 8)]
+
+
+def slab_case(dev, name):
+    """Kernel #3's inputs (centers, cand, starts, qbounds, cell, cutoff,
+    chunk, window) on the card: a 4096-atom random system; the bench
+    glass's 10240 atoms (cubic, triclinic, and with twenty N atoms within
+    1.7 A of the first Zn); and the bench layout with hand-edited
+    ``qbounds`` (empty and reversed ranges, ranges covering their whole
+    window, run 1 repeating run 0), candidate columns in random key
+    order, or a window of 3 x 512 columns all in range (more kept
+    columns than one staging holds)."""
+    if name.startswith("4096"):
+        pos, cell, sp = case(4096, 3, 4, 40.0, pad_from=4000)
+        cut = CUTOFF
+    else:
+        pos, cell, sp, _ = bench_glass(triclinic=name.endswith("triclinic"))
+        cut = BENCH_CUT
+        if name.endswith("crowded"):
+            rng = np.random.default_rng(5)
+            off = rng.normal(0, 1, (20, 3))
+            off *= (rng.uniform(1.0, 1.7, 20)
+                    / np.linalg.norm(off, axis=1))[:, None]
+            n_zn = int((sp == 0).sum())
+            pos[n_zn:n_zn + 20] = (pos[0] + off) % np.diag(cell)
+    plan = slab_table.slab_plan(cell, float(cut.max()), len(sp),
                                 positions=pos[None], species_idx=sp)
     assert plan is not None
-    p, c, s, cut = on(cuda, pos, cell, sp, CUTOFF)
-    lay = slab_table.build_slab_layout(p, s, c, plan)
-    assert not bool(lay[4])
-    args = (*lay[:4], c, cut, k, plan.chunk, plan.window)
-    got = neighbor_kernel.window_table_slab(*args)
+    p, c, s, ct = on(dev, pos, cell, sp, cut)
+    centers, cand, starts, qb, _ = slab_table.build_slab_layout(p, s, c,
+                                                                plan)
+    w = plan.window
+    rng = np.random.default_rng(len(name))
+    pick = torch.from_numpy(rng.random(starts.shape[0]) < 0.5).to(dev)
+    if name == "empty runs":
+        qb[pick, 1, 1] = qb[pick, 1, 0]
+        qb[~pick, 0, 0] = qb[~pick, 0, 1] + 1.0
+    elif name == "whole-window runs":
+        qb[pick, 0, 0] = -float("inf")
+        qb[pick, 0, 1] = float("inf")
+        qb[:, 2, 0] = -float("inf")
+        qb[:, 2, 1] = float("inf")
+    elif name == "overlapping runs":
+        starts[pick, 1] = starts[pick, 0]
+        qb[pick, 1] = qb[pick, 0]
+        qb[~pick, 1, 0] -= 0.5
+    elif name == "unsorted keys":
+        perm = torch.from_numpy(rng.permutation(cand.shape[1])).to(dev)
+        cand = cand[:, perm].contiguous()
+    elif name == "staging flush":
+        w = 512
+        starts.clamp_(max=cand.shape[1] - w)
+        qb[:, :, 0] = -float("inf")
+        qb[:, :, 1] = float("inf")
+    return centers, cand, starts, qb, c, ct, plan.chunk, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,k", SLAB_CASES)
+def test_slab_kernel_matches_plain(cuda, name, k):
+    """Kernel #3 vs its plain version, all three outputs exact, on random
+    and bench-glass layouts and the hand-edited ones of
+    tests/test_torch_slab_compact.py (K 16, 128 and 1024: 4, 2 and 1
+    centers a warp; K 4096: the output tile takes over 48 KB of shared
+    memory); ten repeated calls into memory the allocator last gave to a
+    tensor of -1s give equal outputs."""
+    centers, cand, starts, qb, c, ct, chunk, w = slab_case(cuda, name)
+    args = (centers, cand, starts, qb, c, ct, k, chunk, w)
     ref = neighbor_kernel.window_table_slab_plain(*args)
-    assert_same(got, ref)
+    assert int(ref[2].sum()) > 0
+    if name.endswith("crowded"):
+        assert int(ref[2].max()) > k
+    m = centers.shape[0]
+    for _ in range(11):
+        junk = torch.full((m * (4 * k + 1),), -1, dtype=torch.int32,
+                          device=cuda)
+        del junk
+        assert_same(neighbor_kernel.window_table_slab(*args), ref)
+
+
+@pytest.mark.cuda
+def test_slab_geometry_matches_wrapper(cuda):
+    """Kernel #3's C launch shape (centers a block, staged columns, pass,
+    dynamic shared bytes) is the one the twin and the wrapper assume."""
+    for m, chunk, k, w, s in ((14688, 16, 8, 256, 4), (4096, 16, 1024, 256, 4),
+                              (170, 17, 8, 384, 3), (1600, 16, 8, 512, 4),
+                              (64, 16, 4096, 128, 2), (96, 24, 100, 256, 4),
+                              (48, 48, 8, 256, 40)):
+        geo = neighbor_kernel.window_table_slab_geometry(m, chunk, k, w, s)
+        cpb = neighbor_kernel.slab_centers_per_block(chunk, k)
+        cap = min(3 * w, neighbor_kernel.SLAB_PASS)
+        assert geo["cpb"] == cpb and geo["blocks"] == m // cpb
+        assert geo["cpw"] == (1 if cpb <= 4 else 2 if cpb <= 8 else 4)
+        assert geo["cap"] == cap
+        assert geo["pass_columns"] == neighbor_kernel.SLAB_PASS
+        assert geo["smem_bytes"] == 20 * cap + 16 * cpb * k + 4 * s * s
+        assert geo["registers"] > 0 and geo["blocks_per_sm"] > 0
 
 
 @pytest.mark.cuda
@@ -190,6 +284,20 @@ def test_wrappers_count_launches_and_check_inputs(cuda):
         rdf_kernel.rdf_counts(p.double(), c, s, 0.05, 2, 100)
     with pytest.raises(ValueError):
         rdf_kernel.rdf_counts(p, c, s.long(), 0.05, 2, 100)
+
+    centers, cand, starts, qb, c, ct, chunk, w = slab_case(cuda, "bench")
+    args = [centers, cand, starts, qb, c, ct, 8, chunk, w]
+    before = neighbor_kernel.LAUNCHES["window_table_slab"]
+    neighbor_kernel.window_table_slab(*args)
+    assert neighbor_kernel.LAUNCHES["window_table_slab"] == before + 1
+    neighbor_kernel.window_table_slab_plain(*args)
+    assert neighbor_kernel.LAUNCHES["window_table_slab"] == before + 1
+    for i, bad in ((0, centers.double()), (2, starts[:-1]),
+                   (3, qb.transpose(1, 2)), (5, ct.cpu()),
+                   (1, cand.t().contiguous().t())):
+        with pytest.raises(ValueError):
+            neighbor_kernel.window_table_slab(*args[:i], bad, *args[i + 1:])
+    assert neighbor_kernel.LAUNCHES["window_table_slab"] == before + 1
 
 
 @pytest.mark.cuda
