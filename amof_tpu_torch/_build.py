@@ -59,9 +59,8 @@ _SIGNATURES = {
     ),
     "rdf_hist_geometry": (_I, _I, _I, _I, _I, _P),
     "rdf_root_check_launch": (_P, _P),
-    "window_table_launch": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-    ),
+    "window_table_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "window_table_geometry": (_I, _I, _I, _I, _I, _P),
     "window_table_slab_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ),

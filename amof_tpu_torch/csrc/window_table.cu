@@ -69,25 +69,105 @@
 // compares after floor wraps, not a product, and the kept columns are a
 // data-dependent gather of a couple of kilobytes a block.
 //
-// Kernel #4 (window_table_kernel): one warp per center. The lanes test 32
-// consecutive candidate columns at a time; a ballot orders the valid ones.
-// A block holds up to 32 centers of one chunk (so they share the chunk's
-// window) and stages the window's candidates in shared memory, SEG columns
-// at a time. What bounds it on the card: ~35 f32 operations per candidate
-// test and the staging loads (16 B per candidate per block, from L2); the
-// output is K * 16 B per center.
+// Kernel #4 (window_table_kernel<CPW>). At the bench's rerun case (10240
+// atoms sorted by fractional x, chunk 256, W 1408, K 16) every chunk's
+// window holds chunk + 2W = 3072 columns, but a center reaches only the
+// atoms within max cutoff / w0x of it in fractional x (w0x: the cell's
+// width across the b x c plane), about +-373 sorted positions at 2.0 A in
+// the 54.87 A box: a block of 16 consecutive centers needs ~780 of the
+// 3072. The in-reach (live center, real column) tests are ~8e6, 2.8e8 f32
+// operations (~0.004 ms of the card's f32 rate); the output rows are
+// (16K + 4) B a center. It shares #3's blocks, compaction, test rounds and
+// row writes (slab_scan, slab_stage, test_rounds, write_rows): a block of
+// 128 threads takes cpb consecutive centers of one chunk (cpb = min(16, chunk,
+// 1024 / K), at least 1; a chunk is ceil(chunk / cpb) blocks, its last one
+// short when cpb does not divide it, and so is the last chunk's last block
+// when chunk does not divide n). It:
+//   1. loads its warps' centers into registers, the cell, its inverse and
+//      the squared cutoffs into shared memory; warp 0 computes the arc of
+//      fractional x that the block's live centers span (below), warp 1 the
+//      reach. A block without a live center goes straight to step 4;
+//   2. compacts, in passes of SLAB_PASS columns, the columns that are real
+//      (species >= 0) and within reach of the arc: ballots and a scan keep
+//      them in column order. A column's row is c0 - W + col, brought into
+//      [0, n) by one compare and one add (no division). A pass issues all
+//      its loads before any test (no branch guards them: a guarded load
+//      cost one L2 round trip a column, ~40% of the kernel's time). Only
+//      kept columns are gathered into the staging (x, y, z, species) with
+//      their prefilter values (fractional y and z in f32, 2^-20 max(s_y,
+//      s_z), column);
+//   3. tests them in #3's rounds (test_rounds), with its own pair test:
+//      the pair prefilter, then self excluded by column (the center's own
+//      column is W + its place in the chunk); a center runs the exact test
+//      on a round only if some lane of its warp holds a column near it in
+//      both fractional y and z (at the bench ~0.5% of the pairs; without
+//      it the tests took ~30% more);
+//   4. writes its rows once, coalesced, slots past the count as 0 / -1.
+// What bounds it on the H100: issue (the double-precision cut over every
+// window column, the prefilter over every kept pair) and the L2 latency of
+// a pass's loads; 128 registers at four centers a warp leave 4 blocks an
+// SM, 1.3 waves at the bench (capping registers for 5 or 6 spilled and lost
+// at K 32). Tensor cores and TMA do not apply: the work is exact f32
+// compares after floor wraps, and the kept columns are a data-dependent
+// gather.
+//
+// The fractional-x cut. With v the inverse cell as given and a row's
+// coordinates x_k, the cut takes u = x_0 v_0 + x_1 v_3 + x_2 v_6 and s =
+// |x_0 v_0| + |x_1 v_3| + |x_2 v_6| in double (the products are exact). For
+// the block's live centers, anchor a = u of the first, d_i = (u_i - a) -
+// rint(u_i - a), mid = a + (min d + max d) / 2, half = (max d - min d) / 2,
+// smax = max s_i. Column j is dropped when it is a pad, or when
+//   |t - rint(t)| - half > R + 2^-20 (s_j + smax),  t = u_j - mid,
+//   R = (rc + 2^-20 (rc + L)) / w0x,
+// rc = sqrt(max of the squared cutoff matrix), L = |a| + |b| + |c| over the
+// cell's rows, w0x = |det cell| / |b x c|, all in double. No dropped column
+// passes d2 < cut^2 for any center of the block, under the kernel's own f32
+// arithmetic (round to nearest, no FMA), whatever the positions or cell
+// (u the unit roundoff 2^-24; g3 = 3u / (1 - 3u); cd(x) = |x - rint(x)|, the
+// distance to the nearest integer, a metric on the circle):
+//   * every center i has cd(u_i - mid) <= half, so by the triangle
+//     inequality cd(u_j - u_i) >= cd(u_j - mid) - half: more than R +
+//     2^-20 (s_j + s_i), less the double roundings (< 2^-50 (s_i + s_j +
+//     1) each);
+//   * the kernel's fx = fl(fl(fl(dx v0) + fl(dy v3)) + fl(dz v6)), dx =
+//     fl(x_j - x_i), differs from the exact u_j - u_i by at most (u + g3 +
+//     u g3) sum_k |x_jk - x_ik| |v| <= 4.01u (s_i + s_j), under the
+//     2^-20 = 16u (s_i + s_j) above: cd(fx) > R;
+//   * the wrap n = floor(fl(fx + 0.5 + 1e-7)) is an integer, so |fx - n| >=
+//     cd(fx), and fx' = fl(fx - n) keeps that within a factor (1 - u); each
+//     wrapped component is at most 1 in magnitude (a huge component is an
+//     integer, whose wrap gives 0 or -1);
+//   * w* = fx' a + fy' b + fz' c, exactly, lies |fx'| w0x from the b x c
+//     plane, so |w*| >= |fx'| w0x; the f32 w differs from w* by at most g3
+//     L; the f32 sum of squares is at least |w|^2 (1 - 3u);
+//   * so d2 >= ((|fx'| w0x - g3 L)^2) (1 - 3u) >= rc^2 >= every cut^2 once
+//     |fx'| w0x >= rc (1 + 2u) + g3 L, which R's 2^-20 = 16u terms cover
+//     with room for the (1 - u) factors.
+// The pair prefilter is the same argument along y and z, in f32 and per
+// pair: with u_y, s_y, R_y (w0y = |det| / |c x a|, the distance of w* from
+// the c x a plane being |fy'| w0y) and likewise z, a center keeps a_y =
+// f32(R_y + 2^-20 s_iy) and f32 u_iy, a column f32 u_jy and b = f32(2^-20
+// max(s_jy, s_jz)); the pair is skipped when cd(fl(u_jy - u_iy)) > fl(a_y
+// + b) (or the same in z). The f32 roundings of the u's and of their
+// difference add at most 3u (s_i + s_j), so cd(fy) > R_y (1 - 3u) + (16 -
+// 7.1)u (s_i + s_j), and R_y's 2^-20 (rc + L) term covers the rest as
+// above: a skipped pair fails d2 < cut^2 too.
+// The cut reads only pos, sp, the cell and the cutoffs: no key or sort
+// order of the caller's enters it, so a caller that breaks the sort
+// contract gets fewer dropped columns, never a wrong slot. A degenerate or
+// non-finite cell makes R infinite or NaN, and a NaN never drops (the test
+// is !(gap > bound)). Slots stay in ascending column order, cnt counts every
+// valid column, as before the cut. The CPU twin (neighbor_kernel
+// window_table_compact) runs the cut and the prefilter as written here.
 //
 // Bit-exactness: same expression order as the Pallas kernels, built with
 // --fmad=false, so cutoff tests equal the plain PyTorch version's.
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_CPW = 4;  // centers per warp (<= 32 centers per block)
-constexpr int SEG = 1024;   // candidate columns staged per pass
 constexpr float HALF_EPS = (float)(0.5 + 1e-7);
 
 __device__ __forceinline__ float dist2(float dx, float dy, float dz,
@@ -102,133 +182,6 @@ __device__ __forceinline__ float dist2(float dx, float dy, float dz,
   const float wy = fx * c[1] + fy * c[4] + fz * c[7];
   const float wz = fx * c[2] + fy * c[5] + fz * c[8];
   return wx * wx + wy * wy + wz * wz;
-}
-
-struct Center {
-  float x, y, z, g;  // g: global index (slab variant) or self column
-  int sp;
-  int count;
-};
-
-// Tests one staged segment for every center this warp owns; appends valid
-// candidates (in column order) to the centers' slot lists.
-__device__ __forceinline__ void scan_segment(
-    const float4* cand, const float* cand_g, int segw, int col0,
-    Center* cen, const int* idx, int ncen, bool by_gidx, const float* c,
-    const float* v, const float* __restrict__ cut2, int n_species, int k_cap,
-    float* __restrict__ nbr_pos, int* __restrict__ nbr_sp) {
-  const int lane = threadIdx.x & 31;
-  const unsigned lt_mask = (1u << lane) - 1u;
-  for (int q = 0; q < ncen; ++q) {
-    Center& ce = cen[q];
-    for (int base = 0; base < segw; base += 32) {
-      const int k = base + lane;
-      bool valid = false;
-      float4 cd = make_float4(0.f, 0.f, 0.f, 0.f);
-      int sj = -1;
-      if (k < segw && ce.sp >= 0) {
-        cd = cand[k];
-        sj = __float_as_int(cd.w);
-        if (sj >= 0) {
-          const bool not_self = by_gidx ? (cand_g[k] != ce.g)
-                                        : ((float)(col0 + k) != ce.g);
-          const float d2 = dist2(cd.x - ce.x, cd.y - ce.y, cd.z - ce.z, c, v);
-          valid = not_self && d2 < cut2[ce.sp * n_species + sj];
-        }
-      }
-      const unsigned ballot = __ballot_sync(0xffffffffu, valid);
-      if (valid) {
-        const int rank = ce.count + __popc(ballot & lt_mask);
-        if (rank < k_cap) {
-          const long long o = (long long)idx[q] * k_cap + rank;
-          nbr_pos[3 * o] = cd.x;
-          nbr_pos[3 * o + 1] = cd.y;
-          nbr_pos[3 * o + 2] = cd.z;
-          nbr_sp[o] = sj;
-        }
-      }
-      ce.count += __popc(ballot);
-    }
-  }
-}
-
-__device__ __forceinline__ void finish(const Center* cen, const int* idx,
-                                       int ncen, int k_cap,
-                                       float* __restrict__ nbr_pos,
-                                       int* __restrict__ nbr_sp,
-                                       int* __restrict__ cnt) {
-  const int lane = threadIdx.x & 31;
-  for (int q = 0; q < ncen; ++q) {
-    const long long row = idx[q];
-    if (lane == 0) cnt[row] = cen[q].count;
-    for (int s = cen[q].count + lane; s < k_cap; s += 32) {
-      const long long o = row * k_cap + s;
-      nbr_pos[3 * o] = 0.f;
-      nbr_pos[3 * o + 1] = 0.f;
-      nbr_pos[3 * o + 2] = 0.f;
-      nbr_sp[o] = -1;
-    }
-  }
-}
-
-__device__ __forceinline__ void load_cell(const float* cell, const float* inv,
-                                          float* c, float* v) {
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    c[k] = cell[k];
-    v[k] = inv[k];
-  }
-}
-
-// 1-level window (pallas_window_table). pos [n,3] and sp [n] are sorted by
-// wrapped fractional x; center i's window is ext[c0, c0 + width) with
-// c0 = (i / chunk) * chunk and ext[k] = sorted[(k - window) mod n].
-__global__ void __launch_bounds__(THREADS)
-window_table_kernel(const float* __restrict__ pos, const int* __restrict__ sp,
-                    const float* __restrict__ cell,
-                    const float* __restrict__ inv,
-                    const float* __restrict__ cut2, int n, int n_species,
-                    int k_cap, int chunk, int window, int cpb,
-                    float* __restrict__ nbr_pos, int* __restrict__ nbr_sp,
-                    int* __restrict__ cnt) {
-  __shared__ float4 cand[SEG];
-  const int warp = threadIdx.x >> 5;
-  const int first = blockIdx.x * cpb;
-  const int c0 = (first / chunk) * chunk;
-  const int width = chunk + 2 * window;
-  float c[9], v[9];
-  load_cell(cell, inv, c, v);
-
-  Center cen[MAX_CPW];
-  int idx[MAX_CPW];
-  int ncen = 0;
-  for (int q = 0; q < MAX_CPW; ++q) {
-    const int ci = warp + WARPS * q;
-    const int i = first + ci;
-    if (ci >= cpb || i >= n) break;
-    cen[q].x = pos[3 * i];
-    cen[q].y = pos[3 * i + 1];
-    cen[q].z = pos[3 * i + 2];
-    cen[q].sp = sp[i];
-    cen[q].g = (float)(window + (i - c0));  // self column
-    cen[q].count = 0;
-    idx[q] = i;
-    ++ncen;
-  }
-  for (int col0 = 0; col0 < width; col0 += SEG) {
-    const int segw = min(SEG, width - col0);
-    __syncthreads();
-    for (int k = threadIdx.x; k < segw; k += THREADS) {
-      int j = (c0 + col0 + k - window) % n;
-      if (j < 0) j += n;
-      cand[k] = make_float4(pos[3 * j], pos[3 * j + 1], pos[3 * j + 2],
-                            __int_as_float(sp[j]));
-    }
-    __syncthreads();
-    scan_segment(cand, nullptr, segw, col0, cen, idx, ncen, false, c, v,
-                 cut2, n_species, k_cap, nbr_pos, nbr_sp);
-  }
-  finish(cen, idx, ncen, k_cap, nbr_pos, nbr_sp, cnt);
 }
 
 // 2-level slab windows (pallas_window_table_slab). centers [M,8] rows
@@ -280,19 +233,42 @@ SlabShape slab_shape(int chunk, int k_cap, int w, int n_species) {
   return s;
 }
 
+// Step 3 for one center and this lane's column cd (x, y, z, species):
+// the exact test (cand: the column may pair with the center at all), then
+// one ballot orders the center's valid columns of the round; a valid one
+// goes to the center's tile row at count + rank.
+__device__ __forceinline__ void test_slot(const float4& cd, bool cand,
+                                          const float4& ce, int crow,
+                                          int sjc, int& count,
+                                          const float* cut2, int k_cap,
+                                          float4* row, const float* c,
+                                          const float* v) {
+  const float d2 = dist2(cd.x - ce.x, cd.y - ce.y, cd.z - ce.z, c, v);
+  const bool valid = cand && d2 < cut2[(crow < 0 ? 0 : crow) + sjc];
+  const unsigned ballot = __ballot_sync(0xffffffffu, valid);
+  if (valid) {
+    const int rank =
+        count + __popc(ballot & ((1u << (threadIdx.x & 31)) - 1u));
+    if (rank < k_cap) row[rank] = cd;
+  }
+  count += __popc(ballot);
+}
+
 // Step 3: the warp's CPW centers (center i is the block's warp + 4i) against
 // staged columns [0, staged), 32 a round: each lane reads its column once
-// and tests it against every center (independent chains), then one ballot
-// a center orders that center's valid columns; the valid ones go to the
-// center's tile row. cv holds the cell, then its inverse.
-template <int CPW>
-__device__ __forceinline__ void slab_tests(
-    const float4* stage, const float* gid, int staged, const float4 (&ce)[CPW],
+// and tests it against every center (independent chains). pair_of(k) gives
+// staged column k's own pair test, a functor of the center i (#3: not the
+// center itself; #4: the prefilter, then not the center's own column). With
+// SKIP (#4, whose prefilter leaves few candidates), a center for which no
+// lane of the warp holds one skips the exact test, whose ballot would be
+// empty; without it (#3) the rounds stay branch-free. cv holds the cell,
+// then its inverse.
+template <int CPW, bool SKIP, class PairOf>
+__device__ __forceinline__ void test_rounds(
+    const float4* stage, int staged, const float4 (&ce)[CPW],
     const int (&crow)[CPW], int (&count)[CPW], const float* cut2, int k_cap,
-    float4* tile, const float* cv) {
-  const int lane = threadIdx.x & 31;
+    float4* tile, const float* cv, const PairOf& pair_of) {
   const int warp = threadIdx.x >> 5;
-  const unsigned lt_mask = (1u << lane) - 1u;
   float c[9], v[9];
 #pragma unroll
   for (int e = 0; e < 9; ++e) {
@@ -300,27 +276,20 @@ __device__ __forceinline__ void slab_tests(
     v[e] = cv[9 + e];
   }
   for (int base = 0; base < staged; base += 32) {
-    const int k = base + lane;
+    const int k = base + (threadIdx.x & 31);
     const int kk = k < staged ? k : staged - 1;
     const float4 cd = stage[kk];
-    const float g = gid[kk];
+    const auto pair = pair_of(kk);
     const int sj = __float_as_int(cd.w);
     const bool real = k < staged && sj >= 0;
     const int sjc = sj < 0 ? 0 : sj;
 #pragma unroll
     for (int i = 0; i < CPW; ++i) {
-      const float dx = cd.x - ce[i].x, dy = cd.y - ce[i].y,
-                  dz = cd.z - ce[i].z;
-      const float d2 = dist2(dx, dy, dz, c, v);
-      const bool valid = real && crow[i] >= 0 && g != ce[i].w &&
-                         d2 < cut2[(crow[i] < 0 ? 0 : crow[i]) + sjc];
-      const unsigned ballot = __ballot_sync(0xffffffffu, valid);
-      if (valid) {
-        const int rank = count[i] + __popc(ballot & lt_mask);
-        if (rank < k_cap)
-          tile[(long long)(warp + SLAB_WARPS * i) * k_cap + rank] = cd;
-      }
-      count[i] += __popc(ballot);
+      const bool ok = pair(i);  // every lane: no branch around the test
+      const bool cand = real && crow[i] >= 0 && ok;
+      if (!SKIP || __any_sync(0xffffffffu, cand))
+        test_slot(cd, cand, ce[i], crow[i], sjc, count[i], cut2, k_cap,
+                  tile + (long long)(warp + SLAB_WARPS * i) * k_cap, c, v);
     }
   }
 }
@@ -342,6 +311,74 @@ __device__ __forceinline__ unsigned slab_keep_mask(
     }
   }
   return mine;
+}
+
+// Step 2's scan: bit i of `mine` keeps this thread's column of step i.
+// Returns the block's kept columns of the pass; `excl` is, in lane l, the
+// kept columns of the (step, warp) pairs before pair l (pair = step *
+// SLAB_WARPS + warp), which every warp scans itself. Ends with every thread
+// past a barrier, the counts read.
+__device__ __forceinline__ int slab_scan(unsigned mine, int* counts,
+                                         int& excl) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < SLAB_STEPS; ++i) {
+    const unsigned b = __ballot_sync(0xffffffffu, (mine >> i) & 1u);
+    if (lane == 0) counts[i * SLAB_WARPS + warp] = __popc(b);
+  }
+  __syncthreads();
+  const int x = counts[lane];
+  int incl = x;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += t;
+  }
+  excl = incl - x;
+  return __shfl_sync(0xffffffffu, incl, 31);
+}
+
+// Step 2's gather: each kept column of the pass at p0 goes to staging
+// place staged + its rank in column order, through gather(place, column).
+template <class Gather>
+__device__ __forceinline__ void slab_stage(unsigned mine, int excl,
+                                           int staged, int p0,
+                                           const Gather& gather) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned lt_mask = (1u << lane) - 1u;
+#pragma unroll
+  for (int i = 0; i < SLAB_STEPS; ++i) {
+    const bool keep = (mine >> i) & 1u;
+    const unsigned b = __ballot_sync(0xffffffffu, keep);
+    const int at = __shfl_sync(0xffffffffu, excl, i * SLAB_WARPS + warp);
+    if (keep)
+      gather(staged + at + __popc(b & lt_mask),
+             p0 + i * SLAB_THREADS + (int)threadIdx.x);
+  }
+}
+
+// Step 4: the block's `rows` rows from the tile, each output one contiguous
+// range written coalesced, slots past a row's count as 0 and -1.
+__device__ __forceinline__ void write_rows(const float4* tile,
+                                           const int* ccount, int rows,
+                                           int k_cap, float* pos_out,
+                                           int* sp_out, int* cnt_out) {
+  const int tid = threadIdx.x;
+  const int slots = rows * k_cap;
+  const float* tile_f = (const float*)tile;
+  for (int e = tid; e < 3 * slots; e += SLAB_THREADS) {
+    const int slot = e / 3;
+    const int q = slot / k_cap;
+    pos_out[e] = slot - q * k_cap < ccount[q]
+                     ? tile_f[4 * slot + (e - 3 * slot)] : 0.f;
+  }
+  for (int e = tid; e < slots; e += SLAB_THREADS) {
+    const int q = e / k_cap;
+    sp_out[e] = e - q * k_cap < ccount[q] ? __float_as_int(tile[e].w) : -1;
+  }
+  if (tid < rows) cnt_out[tid] = ccount[tid];
 }
 
 template <int CPW>
@@ -402,56 +439,38 @@ window_table_slab_kernel(const SlabArgs a, int cpb, int cap) {
   if (__syncthreads_or(live)) {
     const float* keys = a.cand + 5LL * a.m2;
     const int width = 3 * w;
-    const unsigned lt_mask = (1u << lane) - 1u;
+    // the pair test: not the center itself, by global index
+    const auto not_self = [&](int k) {
+      const float g = gid[k];
+      return [&, g](int i) { return g != ce[i].w; };
+    };
     int staged = 0;
     for (int p0 = 0; p0 < width; p0 += SLAB_PASS) {
-      // 2. compaction: a ballot per step, then every warp scans the 32
-      // (step, warp) counts itself
+      // 2. compaction
       const unsigned mine =
           slab_keep_mask(keys, p0, width, w, delta, qlo, qhi);
-#pragma unroll
-      for (int i = 0; i < SLAB_STEPS; ++i) {
-        const unsigned b = __ballot_sync(0xffffffffu, (mine >> i) & 1u);
-        if (lane == 0) counts[i * SLAB_WARPS + warp] = __popc(b);
-      }
-      __syncthreads();
-      const int x = counts[lane];
-      int incl = x;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int t = __shfl_up_sync(0xffffffffu, incl, d);
-        if (lane >= d) incl += t;
-      }
-      const int kept = __shfl_sync(0xffffffffu, incl, 31);
+      int excl;
+      const int kept = slab_scan(mine, counts, excl);
       if (staged + kept > cap) {  // block-uniform
-        slab_tests<CPW>(stage, gid, staged, ce, crow, count, cut2, k_cap,
-                        tile, cv);
+        test_rounds<CPW, false>(stage, staged, ce, crow, count, cut2, k_cap,
+                                tile, cv, not_self);
         staged = 0;
         __syncthreads();
       }
-#pragma unroll
-      for (int i = 0; i < SLAB_STEPS; ++i) {
-        const bool keep = (mine >> i) & 1u;
-        const unsigned b = __ballot_sync(0xffffffffu, keep);
-        const int at = __shfl_sync(0xffffffffu, incl - x,
-                                   i * SLAB_WARPS + warp);
-        if (keep) {
-          const int k = staged + at + __popc(b & lt_mask);
-          const int col = p0 + i * SLAB_THREADS + tid;
-          const long long j = col + delta[(col >= w) + (col >= 2 * w)];
-          stage[k] = make_float4(a.cand[j], a.cand[(long long)a.m2 + j],
-                                 a.cand[2LL * a.m2 + j],
-                                 __int_as_float((int)a.cand[3LL * a.m2 + j]));
-          gid[k] = a.cand[4LL * a.m2 + j];
-        }
-      }
+      slab_stage(mine, excl, staged, p0, [&](int k, int col) {
+        const long long j = col + delta[(col >= w) + (col >= 2 * w)];
+        stage[k] = make_float4(a.cand[j], a.cand[(long long)a.m2 + j],
+                               a.cand[2LL * a.m2 + j],
+                               __int_as_float((int)a.cand[3LL * a.m2 + j]));
+        gid[k] = a.cand[4LL * a.m2 + j];
+      });
       __syncthreads();
       staged += kept;
     }
     // 3. what is left staged
     if (staged > 0)
-      slab_tests<CPW>(stage, gid, staged, ce, crow, count, cut2, k_cap, tile,
-                      cv);
+      test_rounds<CPW, false>(stage, staged, ce, crow, count, cut2, k_cap,
+                              tile, cv, not_self);
   }
   if (lane == 0) {
 #pragma unroll
@@ -462,55 +481,305 @@ window_table_slab_kernel(const SlabArgs a, int cpb, int cap) {
   }
   __syncthreads();
 
-  // 4. the block's rows, each output one contiguous range
-  const int slots = cpb * k_cap;
-  float* pos_out = a.out + first * k_cap * 3;
-  const float* tile_f = (const float*)tile;
-  for (int e = tid; e < 3 * slots; e += SLAB_THREADS) {
-    const int slot = e / 3;
-    const int q = slot / k_cap;
-    pos_out[e] = slot - q * k_cap < ccount[q]
-                     ? tile_f[4 * slot + (e - 3 * slot)] : 0.f;
-  }
-  int* sp_out = (int*)(a.out + 3LL * a.m * k_cap) + first * k_cap;
-  for (int e = tid; e < slots; e += SLAB_THREADS) {
-    const int q = e / k_cap;
-    sp_out[e] = e - q * k_cap < ccount[q] ? __float_as_int(tile[e].w) : -1;
-  }
-  if (tid < cpb)
-    ((int*)(a.out + 3LL * a.m * k_cap))[(long long)a.m * k_cap + first + tid] =
-        ccount[tid];
+  // 4. the block's rows
+  int* sp_all = (int*)(a.out + 3LL * a.m * k_cap);
+  write_rows(tile, ccount, cpb, k_cap, a.out + first * k_cap * 3,
+             sp_all + first * k_cap, sp_all + (long long)a.m * k_cap + first);
 }
 
+// Kernel #4's launch arguments. out: one allocation of n * (4K + 1) 32-bit
+// words, nbr_pos f32[n, K, 3], then nbr_sp i32[n, K], then cnt i32[n].
+struct WindowArgs {
+  const float* pos;
+  const int* sp;
+  const float* cell;
+  const float* inv;
+  const float* cutoff;
+  float* out;
+  int n, n_species, k_cap, chunk, window;
+};
+
+struct WindowShape {
+  int cpb;      // centers a block
+  int cpw;      // centers a warp: 1, 2 or 4
+  int bpc;      // blocks a chunk
+  int blocks;   // blocks of the grid
+  int cap;      // staged columns
+  size_t smem;  // dynamic shared bytes: staging, prefilter, tile, cut^2
+};
+
+WindowShape window_shape(int n, int chunk, int k_cap, int window,
+                         int n_species) {
+  WindowShape s;
+  int cpb = k_cap > 0 ? SLAB_TILE_SLOTS / k_cap : SLAB_MAX_CPB;
+  cpb = cpb < SLAB_MAX_CPB ? cpb : SLAB_MAX_CPB;
+  cpb = cpb < chunk ? cpb : chunk;
+  s.cpb = cpb > 1 ? cpb : 1;
+  s.cpw = s.cpb <= SLAB_WARPS ? 1 : s.cpb <= 2 * SLAB_WARPS ? 2 : 4;
+  s.bpc = (chunk + s.cpb - 1) / s.cpb;
+  s.blocks = (n / chunk) * s.bpc + (n % chunk + s.cpb - 1) / s.cpb;
+  const int width = chunk + 2 * window;
+  s.cap = width < SLAB_PASS ? width : SLAB_PASS;
+  s.smem = (size_t)s.cap * 32 + (size_t)s.cpb * k_cap * 16 +
+           (size_t)n_species * n_species * 4;
+  return s;
+}
+
+constexpr double CUT_SLACK = 1.0 / (1 << 20);  // 2^-20 = 16u (header)
+
+// u and s of the cuts (header) for the row at p along the axis whose
+// column of the inverse cell is (v0, v1, v2)
+__device__ __forceinline__ void frac(const float* p, double v0, double v1,
+                                     double v2, double& u, double& s) {
+  const double x0 = (double)p[0] * v0;
+  const double x1 = (double)p[1] * v1;
+  const double x2 = (double)p[2] * v2;
+  u = (x0 + x1) + x2;
+  s = (fabs(x0) + fabs(x1)) + fabs(x2);
+}
+
+__device__ __forceinline__ double norm3(double x, double y, double z) {
+  return sqrt((x * x + y * y) + z * z);
+}
+
+// Kernel #4 (header): block b takes rows [first, first + rows) of chunk
+// b / bpc, whose window is columns [0, chunk + 2W), column col being sorted
+// row c0 - W + col brought into [0, n).
 template <int CPW>
-cudaError_t slab_run(const SlabArgs& a, const SlabShape& s,
-                     cudaStream_t stream) {
-  if (s.smem > 48 * 1024) {
+__global__ void __launch_bounds__(SLAB_THREADS, 4)
+window_table_kernel(const WindowArgs a, int cpb, int bpc, int cap) {
+  extern __shared__ float4 smem[];
+  const int k_cap = a.k_cap, n_species = a.n_species, n = a.n;
+  float4* stage = smem;                           // [cap] x, y, z, species
+  float4* fr = stage + cap;                       // [cap] prefilter, column
+  float4* tile = fr + cap;                        // [cpb * K] slots
+  float* cut2 = (float*)(tile + (long long)cpb * k_cap);  // [S * S]
+  __shared__ int ccount[SLAB_MAX_CPB];
+  __shared__ int counts[32];  // kept columns of each (step, warp)
+  __shared__ float cv[18];    // cell, then inverse
+  __shared__ double arc[3];   // mid, half, smax of the live centers
+  __shared__ double reach[3];  // R of the header along x, y, z
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ch = blockIdx.x / bpc;
+  const int q0 = (blockIdx.x - ch * bpc) * cpb;
+  const int c0 = ch * a.chunk;
+  const long long first = (long long)c0 + q0;
+  int rows = a.chunk - q0 < cpb ? a.chunk - q0 : cpb;
+  rows = n - (int)first < rows ? n - (int)first : rows;
+
+  // 1. centers (w: the center's own column), cell, squared cutoffs
+  float4 ce[CPW];
+  int crow[CPW], count[CPW];
+  bool live = false;
+#pragma unroll
+  for (int i = 0; i < CPW; ++i) {
+    const int q = warp + SLAB_WARPS * i;
+    ce[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    crow[i] = -1;
+    count[i] = 0;
+    if (q < rows) {
+      const long long r = first + q;
+      const int sp = a.sp[r];
+      ce[i] = make_float4(a.pos[3 * r], a.pos[3 * r + 1], a.pos[3 * r + 2],
+                          (float)(a.window + q0 + q));
+      crow[i] = sp >= 0 ? sp * n_species : -1;
+      live = live || sp >= 0;
+    }
+  }
+  if (tid >= 64 && tid < 82) {
+    const int e = tid - 64;
+    cv[e] = e < 9 ? a.cell[e] : a.inv[e - 9];
+  }
+  for (int e = tid; e < n_species * n_species; e += SLAB_THREADS) {
+    const float cf = a.cutoff[e];
+    cut2[e] = cf * cf;
+  }
+  if (warp == 0) {  // the arc of the live centers' fractional x
+    double u = 0.0, s = 0.0;
+    bool on = false;
+    if (lane < rows) {
+      const long long r = first + lane;
+      on = a.sp[r] >= 0;
+      if (on) frac(a.pos + 3 * r, a.inv[0], a.inv[3], a.inv[6], u, s);
+    }
+    const unsigned on_mask = __ballot_sync(0xffffffffu, on);
+    if (on_mask) {  // warp-uniform
+      const double anchor = __shfl_sync(0xffffffffu, u, __ffs(on_mask) - 1);
+      double d = u - anchor;
+      d = d - rint(d);
+      double lo = on ? d : INFINITY, hi = on ? d : -INFINITY;
+      s = on ? s : 0.0;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        lo = fmin(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+        hi = fmax(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+        s = fmax(s, __shfl_xor_sync(0xffffffffu, s, o));
+      }
+      if (lane == 0) {
+        arc[0] = anchor + 0.5 * (lo + hi);
+        arc[1] = 0.5 * (hi - lo);
+        arc[2] = s;
+      }
+    }
+  } else if (warp == 1) {  // the reach R
+    float m2 = 0.f;
+    for (int e = lane; e < n_species * n_species; e += 32) {
+      const float cf = a.cutoff[e];
+      m2 = fmaxf(m2, cf * cf);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m2 = fmaxf(m2, __shfl_xor_sync(0xffffffffu, m2, o));
+    if (lane == 0) {
+      double c[9];
+#pragma unroll
+      for (int e = 0; e < 9; ++e) c[e] = a.cell[e];
+      // rows' cross products: b x c, c x a, a x b
+      const double x[3][3] = {
+          {c[4] * c[8] - c[5] * c[7], c[5] * c[6] - c[3] * c[8],
+           c[3] * c[7] - c[4] * c[6]},
+          {c[7] * c[2] - c[8] * c[1], c[8] * c[0] - c[6] * c[2],
+           c[6] * c[1] - c[7] * c[0]},
+          {c[1] * c[5] - c[2] * c[4], c[2] * c[3] - c[0] * c[5],
+           c[0] * c[4] - c[1] * c[3]}};
+      const double det =
+          fabs((c[0] * x[0][0] + c[1] * x[0][1]) + c[2] * x[0][2]);
+      const double l = (norm3(c[0], c[1], c[2]) + norm3(c[3], c[4], c[5])) +
+                       norm3(c[6], c[7], c[8]);
+      const double rc = sqrt((double)m2);
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        reach[k] = (rc + CUT_SLACK * (rc + l)) /
+                   (det / norm3(x[k][0], x[k][1], x[k][2]));
+    }
+  }
+
+  if (__syncthreads_or(live)) {
+    const double v0 = cv[9], v3 = cv[12], v6 = cv[15];
+    const double mid = arc[0], half = arc[1], smax = arc[2], r0 = reach[0];
+    // the centers' prefilter values: fractional y and z, thresholds
+    float4 cf[CPW];
+#pragma unroll
+    for (int i = 0; i < CPW; ++i) {
+      const float p[3] = {ce[i].x, ce[i].y, ce[i].z};
+      double uy, sy, uz, sz;
+      frac(p, cv[10], cv[13], cv[16], uy, sy);
+      frac(p, cv[11], cv[14], cv[17], uz, sz);
+      cf[i] = make_float4((float)uy, (float)uz,
+                          (float)(reach[1] + CUT_SLACK * sy),
+                          (float)(reach[2] + CUT_SLACK * sz));
+    }
+    // the pair test (header): a staged column's fr holds its fractional y
+    // and z (f32), 2^-20 times the larger of its s_y, s_z, and its column;
+    // the pair is near when within the center's y and z thresholds, and a
+    // candidate when near and not the center's own column
+    const auto near = [&](int k) {
+      const float4 f = fr[k];
+      return [&, f](int i) {
+        float ty = f.x - cf[i].x;
+        ty = fabsf(ty - rintf(ty));
+        float tz = f.y - cf[i].y;
+        tz = fabsf(tz - rintf(tz));
+        return !(ty > cf[i].z + f.z) && !(tz > cf[i].w + f.z) &&
+               f.w != ce[i].w;
+      };
+    };
+    const int width = a.chunk + 2 * a.window;
+    const int row0 = c0 - a.window;  // row of column 0, before the wrap
+    auto row_of = [&](int col) {
+      const int r = row0 + col;
+      return r < 0 ? r + n : r >= n ? r - n : r;
+    };
+    int staged = 0;
+    for (int p0 = 0; p0 < width; p0 += SLAB_PASS) {
+      // 2. compaction: real columns within reach of the arc; every load
+      // of the pass is issued before any test (no branch guards them)
+      unsigned mine = 0;
+#pragma unroll
+      for (int i = 0; i < SLAB_STEPS; ++i) {
+        const int col = p0 + i * SLAB_THREADS + tid;
+        const int r = row_of(col < width ? col : width - 1);
+        const int sj = a.sp[r];
+        double u, s;
+        frac(a.pos + 3LL * r, v0, v3, v6, u, s);
+        const double t = u - mid;
+        const double gap = fabs(t - rint(t)) - half;
+        if (col < width && sj >= 0 && !(gap > r0 + CUT_SLACK * (s + smax)))
+          mine |= 1u << i;
+      }
+      int excl;
+      const int kept = slab_scan(mine, counts, excl);
+      if (staged + kept > cap) {  // block-uniform
+        test_rounds<CPW, true>(stage, staged, ce, crow, count, cut2, k_cap,
+                               tile, cv, near);
+        staged = 0;
+        __syncthreads();
+      }
+      slab_stage(mine, excl, staged, p0, [&](int k, int col) {
+        const long long r = row_of(col);
+        const float* p = a.pos + 3 * r;
+        stage[k] = make_float4(p[0], p[1], p[2], __int_as_float(a.sp[r]));
+        double uy, sy, uz, sz;
+        frac(p, cv[10], cv[13], cv[16], uy, sy);
+        frac(p, cv[11], cv[14], cv[17], uz, sz);
+        fr[k] = make_float4((float)uy, (float)uz,
+                            (float)(CUT_SLACK * fmax(sy, sz)), (float)col);
+      });
+      __syncthreads();
+      staged += kept;
+    }
+    // 3. what is left staged
+    if (staged > 0)
+      test_rounds<CPW, true>(stage, staged, ce, crow, count, cut2, k_cap,
+                             tile, cv, near);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < CPW; ++i) {
+      const int q = warp + SLAB_WARPS * i;
+      if (q < rows) ccount[q] = count[i];
+    }
+  }
+  __syncthreads();
+
+  // 4. the block's rows
+  int* sp_all = (int*)(a.out + 3LL * n * k_cap);
+  write_rows(tile, ccount, rows, k_cap, a.out + first * k_cap * 3,
+             sp_all + first * k_cap, sp_all + (long long)n * k_cap + first);
+}
+
+// Launches `kernel` on `blocks` blocks (dynamic shared bytes past 48 KB
+// allowed first).
+template <class Kern, class... Args>
+cudaError_t run(Kern kernel, int blocks, size_t smem, cudaStream_t stream,
+                Args... args) {
+  if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        window_table_slab_kernel<CPW>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  window_table_slab_kernel<CPW>
-      <<<a.m / s.cpb, SLAB_THREADS, s.smem, stream>>>(a, s.cpb, s.cap);
+  if (blocks > 0)
+    kernel<<<blocks, SLAB_THREADS, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-// the kernel's attributes at shape s: registers, static shared bytes,
-// resident blocks per SM
-template <int CPW>
-cudaError_t slab_attributes(const SlabShape& s, int* out) {
+// a kernel's attributes at `smem` dynamic bytes: registers, static shared
+// bytes, resident blocks per SM
+template <class Kern>
+cudaError_t attributes(Kern kernel, size_t smem, int* out) {
   cudaError_t e = cudaSuccess;
-  if (s.smem > 48 * 1024)
-    e = cudaFuncSetAttribute(window_table_slab_kernel<CPW>,
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)s.smem);
+                             (int)smem);
   cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
   if (e == cudaSuccess)
-    e = cudaFuncGetAttributes(&attr, window_table_slab_kernel<CPW>);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[2], window_table_slab_kernel<CPW>, SLAB_THREADS, s.smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                      SLAB_THREADS, smem);
   if (e != cudaSuccess) return e;
   out[0] = attr.numRegs;
   out[1] = (int)attr.sharedSizeBytes;
@@ -519,25 +788,46 @@ cudaError_t slab_attributes(const SlabShape& s, int* out) {
 
 }  // namespace
 
+// Kernel #4. out: n * (4K + 1) 32-bit words (see WindowArgs).
 extern "C" int window_table_launch(const void* pos, const void* sp,
                                    const void* cell, const void* inv_cell,
-                                   const void* cut2, int n, int n_species,
-                                   int k_cap, int chunk, int window, void* nbr_pos,
-                                   void* nbr_sp, void* cnt, void* stream) {
+                                   const void* cutoff, void* out, int n,
+                                   int n_species, int k_cap, int chunk,
+                                   int window, void* stream) {
   if (n <= 0) return 0;
-  int cpb = 1;
-  for (int d = 32; d >= 1; --d) {
-    if (chunk % d == 0) {
-      cpb = d;
-      break;
-    }
-  }
-  const int blocks = (n + cpb - 1) / cpb;
-  window_table_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)pos, (const int*)sp, (const float*)cell,
-      (const float*)inv_cell, (const float*)cut2, n, n_species, k_cap, chunk,
-      window, cpb, (float*)nbr_pos, (int*)nbr_sp, (int*)cnt);
-  return (int)cudaGetLastError();
+  const WindowArgs a = {(const float*)pos,    (const int*)sp,
+                        (const float*)cell,   (const float*)inv_cell,
+                        (const float*)cutoff, (float*)out,
+                        n, n_species, k_cap, chunk, window};
+  const WindowShape s = window_shape(n, chunk, k_cap, window, n_species);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(s.cpw == 1 ? run(window_table_kernel<1>, s.blocks, s.smem, st,
+                                a, s.cpb, s.bpc, s.cap)
+               : s.cpw == 2 ? run(window_table_kernel<2>, s.blocks, s.smem,
+                                  st, a, s.cpb, s.bpc, s.cap)
+                            : run(window_table_kernel<4>, s.blocks, s.smem,
+                                  st, a, s.cpb, s.bpc, s.cap));
+}
+
+// Kernel #4's launch for (n, chunk, K, W, species) on the current card,
+// eleven ints: blocks, threads a block, centers a block, centers a warp,
+// blocks a chunk, staged columns, columns a pass, dynamic shared bytes,
+// registers a thread, static shared bytes, resident blocks per SM
+extern "C" int window_table_geometry(int n, int chunk, int k_cap, int window,
+                                     int n_species, void* out) {
+  int* o = (int*)out;
+  const WindowShape s = window_shape(n, chunk, k_cap, window, n_species);
+  o[0] = s.blocks;
+  o[1] = SLAB_THREADS;
+  o[2] = s.cpb;
+  o[3] = s.cpw;
+  o[4] = s.bpc;
+  o[5] = s.cap;
+  o[6] = SLAB_PASS;
+  o[7] = (int)s.smem;
+  return (int)(s.cpw == 1   ? attributes(window_table_kernel<1>, s.smem, o + 8)
+               : s.cpw == 2 ? attributes(window_table_kernel<2>, s.smem, o + 8)
+                            : attributes(window_table_kernel<4>, s.smem, o + 8));
 }
 
 // Kernel #3. out: M * (4K + 1) 32-bit words (see SlabArgs).
@@ -553,9 +843,13 @@ extern "C" int window_table_slab_launch(
                       m, m2, n_species, k_cap, chunk, w};
   const SlabShape s = slab_shape(a.chunk, a.k_cap, a.w, a.n_species);
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(s.cpw == 1   ? slab_run<1>(a, s, st)
-               : s.cpw == 2 ? slab_run<2>(a, s, st)
-                            : slab_run<4>(a, s, st));
+  const int blocks = m / s.cpb;
+  return (int)(s.cpw == 1 ? run(window_table_slab_kernel<1>, blocks, s.smem,
+                                st, a, s.cpb, s.cap)
+               : s.cpw == 2 ? run(window_table_slab_kernel<2>, blocks,
+                                  s.smem, st, a, s.cpb, s.cap)
+                            : run(window_table_slab_kernel<4>, blocks,
+                                  s.smem, st, a, s.cpb, s.cap));
 }
 
 // Kernel #3's launch for (M, chunk, K, W, species) on the current card,
@@ -573,7 +867,10 @@ extern "C" int window_table_slab_geometry(int m, int chunk, int k_cap, int w,
   o[4] = s.cap;
   o[5] = SLAB_PASS;
   o[6] = (int)s.smem;
-  return (int)(s.cpw == 1   ? slab_attributes<1>(s, o + 7)
-               : s.cpw == 2 ? slab_attributes<2>(s, o + 7)
-                            : slab_attributes<4>(s, o + 7));
+  return (int)(s.cpw == 1 ? attributes(window_table_slab_kernel<1>, s.smem,
+                                       o + 7)
+               : s.cpw == 2 ? attributes(window_table_slab_kernel<2>, s.smem,
+                                         o + 7)
+                            : attributes(window_table_slab_kernel<4>, s.smem,
+                                         o + 7));
 }

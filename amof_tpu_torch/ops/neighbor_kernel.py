@@ -11,14 +11,16 @@ Counterpart of ``amof_tpu/ops/pallas_neighbors.py``:
     1-level circular window of ``chunk + 2*window`` atoms sorted by
     fractional x; slots in ascending window column.
 
-Both launch ``csrc/window_table.cu`` (one warp per center, ballot-ordered
-slots; see its header) for CUDA tensors and run the plain version for CPU
-tensors. Outputs are (nbr_pos f32[M, K, 3], nbr_sp i32[M, K], cnt
-i32[M]) (kernel #3's on the card: views of one allocation); empty slots
-hold position 0 and species -1; ``cnt`` counts every valid candidate, so
-``cnt > K`` flags overflow. ``window_table_slab_compact`` is the plain
-twin of kernel #3's decomposition (compacted in-range columns, blocks of
-fillers skipped), for the tests only.
+Both launch ``csrc/window_table.cu`` (blocks of up to 16 centers of one
+chunk, candidate columns compacted in column order before any test; see
+its header) for CUDA tensors and run the plain version for CPU tensors.
+Outputs are (nbr_pos f32[M, K, 3], nbr_sp i32[M, K], cnt i32[M]) (on the
+card: views of one allocation); empty slots hold position 0 and species
+-1; ``cnt`` counts every valid candidate, so ``cnt > K`` flags overflow.
+``window_table_slab_compact`` and ``window_table_compact`` are the plain
+twins of the kernels' decompositions (#3: in-range columns; #4: columns
+within the exact fractional-x reach of the block's centers; both skip
+blocks of fillers), for the tests only.
 
 The JAX wrappers' TPU gates do not exist here: no 128-lane payload limit
 (``1 + 4K <= 128``), no VMEM budget, no 128-alignment of chunk or window.
@@ -26,6 +28,8 @@ Any K the retry ladder asks for (up to 1024) runs on the card.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -40,6 +44,13 @@ from amof_tpu_torch.ops.pair_engine import (
 LAUNCHES = {"window_table_slab": 0, "window_table": 0}
 
 _PLAIN_CELLS = 1 << 24  # candidate tests per plain-version batch
+
+
+# the blocks both kernels share, as csrc/window_table.cu fixes them
+SLAB_PASS = 1024        # columns a compaction pass (SLAB_PASS)
+SLAB_MAX_CPB = 16       # centers a block, 4 a warp (SLAB_MAX_CPB)
+SLAB_TILE_SLOTS = 1024  # cpb * K slots a block holds (SLAB_TILE_SLOTS)
+_F32, _I32 = torch.float32, torch.int32
 
 
 def _empty_table(m, k_cap, device):
@@ -59,6 +70,35 @@ def _fill(table, row0, valid, cx, cy, cz, csp, k_cap):
     nbr_pos[r, slots, 2] = cz[rows, cols]
     nbr_sp[r, slots] = csp[rows, cols].to(torch.int32)
     cnt[row0:row0 + valid.shape[0]] = c.to(torch.int32)
+
+
+def _stage_passes(kept, cap, flush):
+    """Steps 2 and 3 of both kernels on one block: the kept columns
+    (``kept`` bool over the window) staged in column order, pass by pass
+    of SLAB_PASS columns, into ``cap`` places; ``flush(columns)`` tests
+    what is staged before a pass that would overflow it, and at the
+    end."""
+    staged = kept.new_zeros(0, dtype=torch.int64)
+    for p0 in range(0, kept.numel(), SLAB_PASS):
+        cols = kept[p0:p0 + SLAB_PASS].nonzero()[:, 0] + p0
+        if staged.numel() + cols.numel() > cap:
+            flush(staged)
+            staged = staged[:0]
+        staged = torch.cat([staged, cols])
+    if staged.numel():
+        flush(staged)
+
+
+def _fill_slots(table, r0, count, valid, xyz, sj):
+    """A flush's slots: row r0 + q's valid columns (``valid`` [rows, C])
+    take its next slots in column order, after its ``count`` so far (which
+    grows by every valid column, written or not)."""
+    nbr_pos, nbr_sp, _ = table
+    slot = count[:, None] + torch.cumsum(valid, dim=1) - 1
+    q, c = (valid & (slot < nbr_sp.shape[1])).nonzero(as_tuple=True)
+    nbr_pos[r0 + q, slot[q, c]] = xyz[c]
+    nbr_sp[r0 + q, slot[q, c]] = sj[c].to(torch.int32)
+    count.add_(valid.sum(dim=1))
 
 
 # --------------------------------------------------------------------------
@@ -96,56 +136,239 @@ def window_table_plain(pos_sorted, sp_sorted, cell, cutoff_matrix,
     return table
 
 
+# kernel #4's decomposition and cut, as csrc/window_table.cu fixes them
+CUT_SLACK = 2.0 ** -20  # the cut's relative margin (CUT_SLACK)
+
+
+def window_centers_per_block(chunk: int, max_neighbors: int) -> int:
+    """Kernel #4's centers a block: min(SLAB_MAX_CPB, chunk, 1024 // K),
+    at least 1. A chunk is ceil(chunk / cpb) blocks, the last one short
+    when cpb does not divide it."""
+    cpb = SLAB_TILE_SLOTS // max_neighbors if max_neighbors > 0 else \
+        SLAB_MAX_CPB
+    return max(1, min(cpb, SLAB_MAX_CPB, chunk))
+
+
+def window_blocks(n: int, chunk: int, max_neighbors: int, device=None):
+    """Kernel #4's blocks in launch order: (first row, rows, chunk start)
+    i64[B] each."""
+    cpb = window_centers_per_block(chunk, max_neighbors)
+    c0 = torch.arange(0, n, chunk, device=device)
+    q0 = torch.arange(0, chunk, cpb, device=device)
+    first = (c0[:, None] + q0[None, :]).reshape(-1)
+    c0 = c0[:, None].expand(-1, q0.numel()).reshape(-1)
+    on = first < n
+    first, c0 = first[on], c0[on]
+    rows = torch.clamp(torch.minimum(c0 + chunk - first, n - first),
+                       max=cpb)
+    return first, rows, c0
+
+
+def window_reach(cell, cutoff_matrix):
+    """(R_x, R_y, R_z) of the cuts (csrc/window_table.cu header): (rc +
+    2^-20 (rc + L)) / w0 in double along each axis, rc the root of the
+    largest f32 squared cutoff, L the sum of the cell rows' lengths, w0
+    the cell's width across the plane of the other two rows; inf or NaN
+    for a degenerate cell (nothing is then dropped)."""
+    m2 = float((cutoff_matrix * cutoff_matrix).max().clamp(min=0))
+    c = [float(x) for x in cell.reshape(-1).tolist()]
+    cross = ((c[4] * c[8] - c[5] * c[7], c[5] * c[6] - c[3] * c[8],
+              c[3] * c[7] - c[4] * c[6]),
+             (c[7] * c[2] - c[8] * c[1], c[8] * c[0] - c[6] * c[2],
+              c[6] * c[1] - c[7] * c[0]),
+             (c[1] * c[5] - c[2] * c[4], c[2] * c[3] - c[0] * c[5],
+              c[0] * c[4] - c[1] * c[3]))
+    norm = lambda x, y, z: math.sqrt((x * x + y * y) + z * z)
+    det = abs((c[0] * cross[0][0] + c[1] * cross[0][1])
+              + c[2] * cross[0][2])
+    el = (norm(*c[0:3]) + norm(*c[3:6])) + norm(*c[6:9])
+    rc = math.sqrt(m2)
+    num = rc + CUT_SLACK * (rc + el)
+    out = []
+    for x in cross:
+        nx = norm(*x)
+        w0 = det / nx if nx > 0 else math.nan
+        out.append(num / w0 if w0 > 0 else
+                   (math.inf if w0 == 0 else math.nan))
+    return tuple(out)
+
+
+def _frac(pos, inv_cell, axis):
+    """(u, s) of the cuts along ``axis`` in double (the header's u and
+    s)."""
+    x = pos.double() * inv_cell[:, axis].double()
+    return ((x[:, 0] + x[:, 1]) + x[:, 2],
+            (x[:, 0].abs() + x[:, 1].abs()) + x[:, 2].abs())
+
+
+def window_prefilter(pos_c, pos_j, inv_cell, reach):
+    """Kernel #4's pair prefilter, bool[C, J]: False where a center of
+    ``pos_c`` and a column of ``pos_j`` lie further apart in fractional y
+    or z than the f32 thresholds allow (no such pair passes the exact
+    test; csrc/window_table.cu header)."""
+    near = torch.ones((pos_c.shape[0], pos_j.shape[0]), dtype=torch.bool,
+                      device=pos_c.device)
+    fj = {ax: _frac(pos_j, inv_cell, ax) for ax in (1, 2)}
+    b = (CUT_SLACK * torch.maximum(fj[1][1], fj[2][1])).float()
+    for ax, (uj, _) in fj.items():
+        uc, sc = _frac(pos_c, inv_cell, ax)
+        a = (reach[ax] + CUT_SLACK * sc).float()
+        t = uj.float()[None, :] - uc.float()[:, None]
+        t = (t - torch.round(t)).abs()
+        near &= ~(t > a[:, None] + b[None, :])
+    return near
+
+
+def window_kept_columns(pos_sorted, sp_sorted, cell, cutoff_matrix,
+                        max_neighbors: int, chunk: int, window: int,
+                        inv_cell=None):
+    """Kernel #4's fractional-x cut, block by block (the CUDA source's
+    header argues it): (kept bool[B, chunk + 2W], live i64[B], first, rows,
+    c0). Column col of block b is sorted row (c0 - W + col) mod n; it is
+    kept iff it is real and within R + 2^-20 (s_col + smax) of the arc
+    that the block's live centers span in fractional x. ``live`` counts a
+    block's live centers (0: the kernel skips it)."""
+    if inv_cell is None:
+        inv_cell = inverse_cell(cell)
+    n = pos_sorted.shape[0]
+    dev = pos_sorted.device
+    first, rows, c0 = window_blocks(n, chunk, max_neighbors, dev)
+    cpb = window_centers_per_block(chunk, max_neighbors)
+    u, s = _frac(pos_sorted, inv_cell, 0)
+    q = torch.arange(cpb, device=dev)
+    idx = torch.clamp(first[:, None] + q, max=n - 1)
+    on = (q[None, :] < rows[:, None]) & (sp_sorted[idx] >= 0)
+    live = on.sum(dim=1)
+    anchor = u[idx].gather(1, on.int().argmax(dim=1, keepdim=True))
+    d = u[idx] - anchor
+    d = d - torch.round(d)
+    inf = torch.full_like(d, math.inf)
+    lo = torch.where(on, d, inf).amin(dim=1)
+    hi = torch.where(on, d, -inf).amax(dim=1)
+    mid = anchor[:, 0] + 0.5 * (lo + hi)
+    half = 0.5 * (hi - lo)
+    smax = torch.where(on, s[idx], torch.zeros_like(d)).amax(dim=1)
+    reach = window_reach(cell, cutoff_matrix)[0]
+    cols = torch.arange(chunk + 2 * window, device=dev)
+    j = (c0[:, None] - window + cols[None, :]) % n
+    t = u[j] - mid[:, None]
+    gap = (t - torch.round(t)).abs() - half[:, None]
+    kept = (sp_sorted[j] >= 0) & ~(gap > reach + CUT_SLACK
+                                   * (s[j] + smax[:, None]))
+    return kept, live, first, rows, c0
+
+
+def window_table_compact(pos_sorted, sp_sorted, cell, cutoff_matrix,
+                         max_neighbors: int, chunk: int, window: int,
+                         inv_cell=None):
+    """Plain twin of kernel #4's decomposition, for tests (never on the
+    card's path). Block by block, as the kernel runs: a block
+    (``window_blocks``) with no live center leaves its rows empty;
+    otherwise the columns its cut keeps (``window_kept_columns``) are
+    staged in column order, as kernel #3 stages its kept columns, and each
+    live center's slots fill from them in order, a pair the prefilter
+    (``window_prefilter``) drops never valid. The tests hold it equal to
+    the plain version."""
+    if inv_cell is None:
+        inv_cell = inverse_cell(cell)
+    n = pos_sorted.shape[0]
+    k_cap = max_neighbors
+    cut2 = cutoff_matrix * cutoff_matrix
+    width = chunk + 2 * window
+    table = _empty_table(n, k_cap, pos_sorted.device)
+    kept, live, first, rows, c0 = window_kept_columns(
+        pos_sorted, sp_sorted, cell, cutoff_matrix, k_cap, chunk, window,
+        inv_cell)
+    reach = window_reach(cell, cutoff_matrix)
+    for b in torch.nonzero(live > 0)[:, 0].tolist():
+        r0, nr, cb = int(first[b]), int(rows[b]), int(c0[b])
+        cen = pos_sorted[r0:r0 + nr]
+        si = sp_sorted[r0:r0 + nr].long()
+        self_col = window + r0 - cb + torch.arange(nr, device=cen.device)
+        count = torch.zeros(nr, dtype=torch.int64, device=cen.device)
+
+        def flush(cols):
+            j = (cb - window + cols) % n
+            xyz, sj = pos_sorted[j], sp_sorted[j].long()
+            d2 = squared_norm(min_image_delta(
+                xyz[None, :, :] - cen[:, None, :], cell, inv_cell))
+            thr = cut2[si.clamp(min=0)[:, None], sj.clamp(min=0)[None, :]]
+            valid = ((d2 < thr) & (si >= 0)[:, None] & (sj >= 0)[None, :]
+                     & (cols[None, :] != self_col[:, None])
+                     & window_prefilter(cen, xyz, inv_cell, reach))
+            _fill_slots(table, r0, count, valid, xyz, sj)
+
+        _stage_passes(kept[b], min(width, SLAB_PASS), flush)
+        table[2][r0:r0 + nr] = count.to(torch.int32)
+    return table
+
+
 def window_table(pos_sorted, sp_sorted, cell, cutoff_matrix,
                  max_neighbors: int, chunk: int, window: int, inv_cell=None):
     """Kernel #4 (replaces ``pallas_window_table``): for each sorted
     center i with chunk start c0 = (i // chunk) * chunk, the candidates
     are ext[c0, c0 + chunk + 2*window) with ext[k] = sorted[(k - window)
     mod n]; self is excluded by column. Returns (nbr_pos f32[n, K, 3],
-    nbr_sp i32[n, K], cnt i32[n])."""
+    nbr_sp i32[n, K], cnt i32[n]).
+
+    On the card the three outputs are views of one allocation, the kernel
+    squares the cutoffs and computes its cut itself: the launch is the
+    call's only device work."""
     if inv_cell is None:
         inv_cell = inverse_cell(cell)
-    if pos_sorted.device.type == "cpu":
+    if pos_sorted.is_cpu:
         return window_table_plain(pos_sorted, sp_sorted, cell, cutoff_matrix,
                                   max_neighbors, chunk, window, inv_cell)
     from amof_tpu_torch import _build
 
-    n = pos_sorted.shape[0]
-    n_species = cutoff_matrix.shape[0]
-    cut2 = (cutoff_matrix * cutoff_matrix).contiguous()
-    _check(pos_sorted, (n, 3), torch.float32, "pos_sorted")
-    _check(sp_sorted, (n,), torch.int32, "sp_sorted")
-    for name, t in (("cell", cell), ("inv_cell", inv_cell),
-                    ("cutoff_matrix", cut2)):
-        _check(t, tuple(t.shape), torch.float32, name)
-    if chunk < 1 or window < 0 or chunk + 2 * window >= n:
-        raise ValueError("need chunk >= 1 and chunk + 2*window < n")
-    _same_device(pos_sorted, sp_sorted, cell, inv_cell, cut2)
-    nbr_pos = torch.empty((n, max_neighbors, 3), dtype=torch.float32,
-                          device=pos_sorted.device)
-    nbr_sp = torch.empty((n, max_neighbors), dtype=torch.int32,
-                         device=pos_sorted.device)
-    cnt = torch.empty(n, dtype=torch.int32, device=pos_sorted.device)
+    n, k, s = pos_sorted.shape[0], max_neighbors, cutoff_matrix.shape[0]
+    if (chunk < 1 or window < 0 or chunk + 2 * window >= n or k < 0
+            or n >= 1 << 24):
+        raise ValueError("need chunk >= 1, window >= 0, chunk + 2*window < "
+                         "n < 2^24 and K >= 0")
+    dev = pos_sorted.get_device()
+    for t, shape, dtype, name in (
+            (pos_sorted, (n, 3), _F32, "pos_sorted"),
+            (sp_sorted, (n,), _I32, "sp_sorted"),
+            (cell, (3, 3), _F32, "cell"), (inv_cell, (3, 3), _F32, "inv_cell"),
+            (cutoff_matrix, (s, s), _F32, "cutoff_matrix")):
+        if (t.dtype != dtype or t.shape != shape or not t.is_contiguous()
+                or t.get_device() != dev):
+            _check(t, shape, dtype, name)
+            raise ValueError("all inputs must be on one device")
+    buf = torch.empty(n * (4 * k + 1), dtype=_I32, device=pos_sorted.device)
     err = _build.library().window_table_launch(
         pos_sorted.data_ptr(), sp_sorted.data_ptr(), cell.data_ptr(),
-        inv_cell.data_ptr(), cut2.data_ptr(), n, n_species, max_neighbors,
-        chunk, window, nbr_pos.data_ptr(), nbr_sp.data_ptr(), cnt.data_ptr(),
-        _build.stream_ptr(pos_sorted),
-    )
+        inv_cell.data_ptr(), cutoff_matrix.data_ptr(), buf.data_ptr(), n, s,
+        k, chunk, window, _build.stream_ptr(pos_sorted))
     _build.check(err, "window_table")
     LAUNCHES["window_table"] += 1
-    return nbr_pos, nbr_sp, cnt
+    return _table_views(buf, n, k)
+
+
+def window_table_geometry(n: int, chunk: int, max_neighbors: int,
+                          window: int, n_species: int) -> dict:
+    """What kernel #4's launch gets for n sorted centers on the current
+    card: blocks, threads, cpb (centers a block), cpw (centers a warp),
+    bpc (blocks a chunk), cap (staged columns), pass_columns, smem_bytes
+    (dynamic), registers, static_smem_bytes and blocks_per_sm, as the CUDA
+    source computes them."""
+    import ctypes
+
+    from amof_tpu_torch import _build
+
+    geo = (ctypes.c_int * 11)()
+    _build.check(_build.library().window_table_geometry(
+        n, chunk, max_neighbors, window, n_species, geo),
+        "window_table_geometry")
+    keys = ("blocks", "threads", "cpb", "cpw", "bpc", "cap", "pass_columns",
+            "smem_bytes", "registers", "static_smem_bytes", "blocks_per_sm")
+    return dict(zip(keys, geo))
 
 
 # --------------------------------------------------------------------------
 # Kernel #3: 2-level (x-slab, y) windows, three candidate runs per chunk
 # --------------------------------------------------------------------------
-
-# kernel #3's decomposition, as csrc/window_table.cu fixes it
-SLAB_PASS = 1024        # columns a compaction pass (SLAB_PASS)
-SLAB_MAX_CPB = 16       # centers a block, 4 a warp (SLAB_MAX_CPB)
-SLAB_TILE_SLOTS = 1024  # cpb * K slots a block holds (SLAB_TILE_SLOTS)
-
 
 def slab_centers_per_block(chunk: int, max_neighbors: int) -> int:
     """Kernel #3's centers a block: the largest divisor of ``chunk`` up
@@ -229,7 +452,7 @@ def window_table_slab_compact(centers, cand, starts, qbounds, cell,
     cut2 = cutoff_matrix * cutoff_matrix
     cpb = slab_centers_per_block(chunk, k_cap)
     cap = min(3 * window, SLAB_PASS)
-    nbr_pos, nbr_sp, cnt = table = _empty_table(m, k_cap, centers.device)
+    table = _empty_table(m, k_cap, centers.device)
     kept, rows = slab_kept_columns(cand, starts, qbounds, window)
     for r0 in range(0, m, cpb):
         cen = centers[r0:r0 + cpb]
@@ -248,26 +471,11 @@ def window_table_slab_compact(centers, cand, starts, qbounds, cell,
             thr = cut2[si.clamp(min=0)[:, None], sj.clamp(min=0)[None, :]]
             valid = ((d2 < thr) & (si >= 0)[:, None] & (sj >= 0)[None, :]
                      & (cand[4, j][None, :] != cen[:, 4:5]))
-            slot = count[:, None] + torch.cumsum(valid, dim=1) - 1
-            q, c = (valid & (slot < k_cap)).nonzero(as_tuple=True)
-            nbr_pos[r0 + q, slot[q, c]] = xyz[c]
-            nbr_sp[r0 + q, slot[q, c]] = sj[c].to(torch.int32)
-            count.add_(valid.sum(dim=1))
+            _fill_slots(table, r0, count, valid, xyz, sj)
 
-        staged = kept.new_zeros(0, dtype=torch.int64)
-        for p0 in range(0, 3 * window, SLAB_PASS):
-            cols = kept[ch, p0:p0 + SLAB_PASS].nonzero()[:, 0] + p0
-            if staged.numel() + cols.numel() > cap:
-                flush(staged)
-                staged = staged[:0]
-            staged = torch.cat([staged, cols])
-        if staged.numel():
-            flush(staged)
-        cnt[r0:r0 + cpb] = count.to(torch.int32)
+        _stage_passes(kept[ch], cap, flush)
+        table[2][r0:r0 + cpb] = count.to(torch.int32)
     return table
-
-
-_F32, _I32 = torch.float32, torch.int32
 
 
 def window_table_slab(centers, cand, starts, qbounds, cell, cutoff_matrix,
@@ -315,12 +523,12 @@ def window_table_slab(centers, cand, starts, qbounds, cell, cutoff_matrix,
         _build.stream_ptr(centers))
     _build.check(err, "window_table_slab")
     LAUNCHES["window_table_slab"] += 1
-    return _slab_views(buf, m, k)
+    return _table_views(buf, m, k)
 
 
-def _slab_views(buf, m, k):
-    """(nbr_pos, nbr_sp, cnt) as views of the kernel's one output buffer
-    of M * (4K + 1) int32 words."""
+def _table_views(buf, m, k):
+    """(nbr_pos, nbr_sp, cnt) as views of a kernel's one output buffer of
+    M * (4K + 1) int32 words."""
     return (buf.view(_F32).as_strided((m, k, 3), (3 * k, 3, 1)),
             buf.as_strided((m, k), (k, 1), 3 * m * k),
             buf.as_strided((m,), (1,), 4 * m * k))
@@ -353,7 +561,3 @@ def _check(t, shape, dtype, name):
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
-
-def _same_device(*ts):
-    if len({t.device for t in ts}) != 1:
-        raise ValueError("all inputs must be on one device")

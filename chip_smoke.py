@@ -22,7 +22,14 @@ Phases, each reported on its own line(s) of standard output:
      live centers, kept columns, tests, valid pairs), plus its launch
      geometry and its launch path piece by piece on the host clock; its
      bound counts only the (live center, in-range real column) tests, the
-     all-columns bound printed beside it;
+     all-columns bound printed beside it. Kernel #4 (the 1-level window
+     table) likewise on bench frame 0 at K 16 (the reruns' call), on the
+     windowed CN pass's own input for that frame at K 32, and on the
+     crowded frame at K 16 (``window_work``: blocks, fillers-only blocks,
+     kept columns a block, tests, pairs past the y/z prefilter), its
+     bound counting the prefilter over the (live center, kept column)
+     pairs that its exact fractional-x cut leaves and the exact test over
+     the pairs the prefilter keeps, the all-columns bound beside it;
   4. the main path: ``FusedAnalysis.run`` at bench.py's configuration
      (256 frames, dtheta 0.05 deg, chunk 256, max_neighbors 8,
      frames_per_call 128, BAD and MSD on). Launch counters are zeroed
@@ -81,7 +88,9 @@ result from cold processes with and without the warmup); phase
 4 runs each entry point on the bench trajectory with the counters zeroed
 before it and read after it (RDF on 256 frames: #1; the RDF-integral CN
 on 4: #2; CN on 32; Bad on 256: #3; BadByCn on 32; Bad on the crowded
-4-frame excerpt: #4; WindowMsd on 256; Pore on 32: #5, #6, #7); phase 5
+4-frame excerpt: #4; WindowMsd on 256; Pore on 32: #5, #6, #7), then
+CN on 32 frames both ways (``cn.cn_columns``' full pass on the card and
+the windowed pass through kernel #4, forced there; columns equal); phase 5
 compares every entry point's columns on the card and on the CPU on a
 2048-atom excerpt.
 
@@ -222,8 +231,9 @@ def kernel_checks(args, meta, batch, dev, card, frames=(0, 1, 2),
                   window_check=(16, 256, 1408)):
     """Phase 3: every kernel vs its plain version at the main path's
     shapes. Returns ({name: (max_abs_err, ms, plain_ms)}, {name: more
-    keys of its kernel JSON}, kernel #3's ``slab_work`` counts on bench
-    frame 0 at K 8)."""
+    keys of its kernel JSON}, {"window_table_slab": kernel #3's
+    ``slab_work`` counts on bench frame 0 at K 8, "window_table": kernel
+    #4's ``window_work`` counts on bench frame 0 at ``window_check``})."""
     import numpy as np
     import torch
 
@@ -320,7 +330,141 @@ def kernel_checks(args, meta, batch, dev, card, frames=(0, 1, 2),
         lambda f: neighbor_kernel.window_table_plain(
             *srt[f], cells[f], cut, *window_check, inv_cell=inv[f]),
     )
-    return res, {"window_table_slab": slab_extras}, slab_counts
+    window_extras, window_counts = window_kernel_cases(
+        (srt[frames[0]], cells[frames[0]], cut, inv[frames[0]]),
+        window_check, batch, dev, card)
+    return (res, {"window_table_slab": slab_extras,
+                  "window_table": window_extras},
+            {"window_table_slab": slab_counts, "window_table": window_counts})
+
+
+def window_work(srt, cell, cut, inv, k, chunk, w, cnt):
+    """What kernel #4's inputs need (``window_kept_columns``, the kernel's
+    cut, and ``window_prefilter``, its y/z pair prefilter): blocks, blocks
+    of fillers only, live centers, kept (real, in-reach) columns a block
+    with a live center, (live center, kept column) tests, those of them
+    that pass the prefilter and are not the center's own column
+    (``near``), valid pairs and rows with cnt > K."""
+    import torch
+
+    from amof_tpu_torch.ops import neighbor_kernel
+
+    pos, sp = srt
+    n = pos.shape[0]
+    kept, live, first, rows, c0 = neighbor_kernel.window_kept_columns(
+        pos, sp, cell, cut, k, chunk, w, inv_cell=inv)
+    per = kept.sum(dim=1)
+    busy = live > 0
+    reach = neighbor_kernel.window_reach(cell, cut)
+    near = torch.zeros((), dtype=torch.int64, device=pos.device)
+    for b in torch.nonzero(busy)[:, 0].tolist():
+        r0, nr, cb = int(first[b]), int(rows[b]), int(c0[b])
+        on = sp[r0:r0 + nr] >= 0
+        cols = torch.nonzero(kept[b])[:, 0]
+        pf = neighbor_kernel.window_prefilter(
+            pos[r0:r0 + nr][on], pos[(cb - w + cols) % n], inv, reach)
+        own = w + r0 - cb + torch.nonzero(on)[:, 0]
+        near += (pf & (cols[None, :] != own[:, None])).sum()
+    return {"blocks": live.numel(), "empty_blocks": int((~busy).sum()),
+            "live_centers": int(live.sum()),
+            "kept_mean": float(per[busy].double().mean()),
+            "kept_max": int(per.max()), "width": chunk + 2 * w,
+            "tests": int((live * per).sum()), "near": int(near),
+            "valid_pairs": int(cnt.long().sum()),
+            "rows_over_k": int((cnt > k).sum())}
+
+
+def window_kernel_cases(frame0, window_check, batch, dev, card):
+    """Kernel #4 on three cases: bench frame 0 at the fused reruns' K 16,
+    chunk 256, W 1408; the windowed CN pass's own input for the same
+    frame (``cn``'s padded atoms, species order and cutoffs, sorted by
+    fractional x as ``frame_cn_counts_windowed`` sorts them; K 32, its
+    chunk and window); and the crowded frame (one Zn with twenty added N
+    neighbours) at K 16. Each is held equal to the plain version and
+    timed: CUDA events (10 calls), device time under the profiler (10
+    calls) and host enqueue time; a counts line and the launch geometry.
+    Returns (kernel JSON keys, the counts on the reruns' case)."""
+    import numpy as np
+    import torch
+
+    from amof_tpu_torch import cn
+    from amof_tpu_torch.ops import neighbor_kernel as nk
+    from amof_tpu_torch.ops import pair_engine
+    from amof_tpu_torch.parallel.pipeline import FusedAnalysis
+
+    srt0, cell0, cut, inv0 = frame0
+    kk, chunk, w = window_check
+    species = np.asarray(batch.species)
+    unique, z_to_idx = cn._species_table(species)
+    cn_cut = torch.from_numpy(cn._cutoff_matrix_for_species(
+        CUTOFFS, unique, z_to_idx)).to(dev)
+    positions, species_idx = pair_engine.pad_atoms(
+        np.asarray(batch.positions[:1], dtype=np.float32),
+        z_to_idx[species].astype(np.int32))
+    n_cn = positions.shape[1]
+    cn_chunk = pair_engine._pick_chunk(n_cn)
+    cells = np.asarray(batch.cell[:1], dtype=np.float32)
+    cn_w = cn.sorted_window(cells, float(cn_cut.max()), n_cn, cn_chunk)
+    cn_cell = torch.from_numpy(np.ascontiguousarray(cells[0])).to(dev)
+    cn_inv = pair_engine.inverse_cell(cn_cell)
+    _, cn_pos, cn_sp = pair_engine.sort_by_fractional_x(
+        torch.from_numpy(positions[0]).to(dev),
+        torch.from_numpy(species_idx).to(dev), cn_inv)
+    box = float(batch.cell[0, 0, 0])
+    crowded = crowd_one_zn(excerpt(batch, 1), 0, box)
+    _, cargs, _ = FusedAnalysis(CUTOFFS, **BENCH).prepare(crowded, device=dev)
+    _, cpos, csp = pair_engine.sort_by_fractional_x(
+        cargs.positions[0], cargs.species_idx, cargs.inv_cells[0])
+    cases = {
+        f"bench frame 0, K {kk}": (srt0, cell0, cut, inv0, kk, chunk, w),
+        f"CN pass frame 0, K {pair_engine.CN_WINDOW_SLOTS}": (
+            (cn_pos, cn_sp), cn_cell, cn_cut, cn_inv,
+            pair_engine.CN_WINDOW_SLOTS, cn_chunk, cn_w),
+        f"crowded frame, K {kk}": ((cpos.contiguous(), csp.contiguous()),
+                                   cargs.cells[0], cut, cargs.inv_cells[0],
+                                   kk, chunk, w),
+    }
+    ms, dev_us, host_us, counts, geo = {}, {}, {}, {}, {}
+    for what, (srt, cell, cm, inv, k, ch, win) in cases.items():
+        ref, ms[what], dev_us[what], host_us[what] = equal_and_timed(
+            "window_table", "window_table_kernel", what,
+            lambda srt=srt, cell=cell, cm=cm, inv=inv, k=k, ch=ch, win=win:
+            nk.window_table(*srt, cell, cm, k, ch, win, inv_cell=inv),
+            lambda: nk.window_table_plain(*srt, cell, cm, k, ch, win,
+                                          inv_cell=inv),
+            card)
+        counts[what] = cnt = window_work(srt, cell, cm, inv, k, ch, win,
+                                         ref[2])
+        if what.startswith("crowded"):
+            check(cnt["rows_over_k"] > 0, "the crowded frame has no cnt > K")
+        say(f"window table, {what} (chunk {ch}, W {win}): {cnt['blocks']} "
+            f"blocks, {cnt['empty_blocks']} of fillers only, "
+            f"{cnt['live_centers']} live centers; kept columns a block "
+            f"{cnt['kept_mean']:.1f} (max {cnt['kept_max']}) of "
+            f"{cnt['width']}; {cnt['tests']} (live center, kept column) "
+            f"tests, {cnt['near']} of them past the y/z prefilter; "
+            f"{cnt['valid_pairs']} valid pairs, "
+            f"{cnt['rows_over_k']} rows with cnt > K (equal to plain)")
+        n = srt[0].shape[0]
+        if (n, k, ch, win) not in geo:
+            geo[n, k, ch, win] = g = nk.window_table_geometry(
+                n, ch, k, win, cm.shape[0])
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            say(f"geometry window_table ({n} rows, K {k}, chunk {ch}, W "
+                f"{win}): "
+                f"{g['blocks']} blocks of {g['threads']} threads "
+                f"({g['cpb']} centers a block, {g['cpw']} a warp, "
+                f"{g['bpc']} blocks a chunk), {g['smem_bytes']} B dynamic + "
+                f"{g['static_smem_bytes']} B static shared ({g['cap']} "
+                f"staged columns, {g['pass_columns']} a pass), "
+                f"{g['registers']} registers, {g['blocks_per_sm']} blocks/SM "
+                f"on {sms} SMs: "
+                f"{g['blocks'] / (g['blocks_per_sm'] * sms):.2f} waves")
+    extras = {"cases_ms": ms, "device_us": dev_us, "host_us": host_us,
+              "counts": counts,
+              "geometry": {f"{n} rows, K {k}, chunk {c}, W {w_}": g
+                           for (n, k, c, w_), g in geo.items()}}
+    return extras, counts[f"bench frame 0, K {kk}"]
 
 
 def slab_work(lay, plan, k, cnt):
@@ -389,12 +533,34 @@ def slab_launch_path_us(lay, cell, cut, inv, plan, k, reps=2000):
     return time_host_pieces({
         "torch.empty": lambda: torch.empty(m * (4 * k + 1),
                                            dtype=torch.int32, device=dev),
-        "output views": lambda: nk._slab_views(buf, m, k),
+        "output views": lambda: nk._table_views(buf, m, k),
         "bare ctypes launch": lambda: fn(*vals, stream),
         "stream_ptr": lambda: _build.stream_ptr(lay[0]),
         "window_table_slab": lambda: nk.window_table_slab(
             *lay, cell, cut, k, plan.chunk, plan.window, inv_cell=inv),
     }, reps)
+
+
+def equal_and_timed(name, kernel_key, what, call, plain, card):
+    """Holds ``call()`` (kernel ``name``) equal to ``plain()`` on ``what``
+    and times it: CUDA events (10 calls after 2), device time of the
+    kernels whose name holds ``kernel_key`` under the profiler (10 calls)
+    and host enqueue time; prints the times. Returns (plain outputs, ms,
+    device us or None, host us)."""
+    import torch
+
+    got, ref = call(), plain()
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        check(g.shape == r.shape and g.dtype == r.dtype and torch.equal(g, r),
+              f"{name}: kernel != plain on {what}")
+    ms = cuda_ms(call, reps=10, warmup=2)
+    dev = device_us(call, kernel_key, reps=10)
+    host = host_enqueue_us(call)
+    say(f"kernel {name} on {what}: {ms:.4f} ms/call (CUDA events, 10 calls),"
+        f" device {dev if dev is None else round(dev, 2)} us/call "
+        f"(torch.profiler), host enqueue {host:.2f} us/call on {card}")
+    return ref, ms, dev, host
 
 
 def slab_kernel_cases(frame0, batch, dev, card):
@@ -431,23 +597,17 @@ def slab_kernel_cases(frame0, batch, dev, card):
     ms, dev_us, host_us, counts, geo = {}, {}, {}, {}, {}
     n_species = cut.shape[0]
     for what, (lay, cell, inv, pl, k) in cases.items():
-        call = (lambda lay=lay, cell=cell, inv=inv, pl=pl, k=k:
-                nk.window_table_slab(*lay, cell, cut, k, pl.chunk, pl.window,
-                                     inv_cell=inv))
-        got = call()
-        ref = nk.window_table_slab_plain(*lay, cell, cut, k, pl.chunk,
-                                         pl.window, inv_cell=inv)
-        torch.cuda.synchronize()
-        for g, r in zip(got, ref):
-            check(g.shape == r.shape and g.dtype == r.dtype
-                  and torch.equal(g, r),
-                  f"window_table_slab: kernel != plain on {what}")
+        ref, ms[what], dev_us[what], host_us[what] = equal_and_timed(
+            "window_table_slab", "window_table_slab", what,
+            lambda lay=lay, cell=cell, inv=inv, pl=pl, k=k:
+            nk.window_table_slab(*lay, cell, cut, k, pl.chunk, pl.window,
+                                 inv_cell=inv),
+            lambda: nk.window_table_slab_plain(*lay, cell, cut, k, pl.chunk,
+                                               pl.window, inv_cell=inv),
+            card)
         counts[what] = cnt = slab_work(lay, pl, k, ref[2])
         if what.startswith("crowded"):
             check(cnt["rows_over_k"] > 0, "the crowded frame has no cnt > K")
-        ms[what] = cuda_ms(call, reps=10, warmup=2)
-        dev_us[what] = device_us(call, "window_table_slab", reps=10)
-        host_us[what] = host_enqueue_us(call)
         say(f"slab table, {what}: {cnt['chunks']} chunks, "
             f"{cnt['empty_chunks']} of fillers only, {cnt['live_centers']} "
             f"live centers; kept columns a chunk {cnt['kept_mean']:.1f} "
@@ -455,11 +615,6 @@ def slab_kernel_cases(frame0, batch, dev, card):
             f"(live center, in-range real column) tests; "
             f"{cnt['valid_pairs']} valid pairs, {cnt['rows_over_k']} rows "
             f"with cnt > K (equal to plain)")
-        say(f"kernel window_table_slab on {what}: {ms[what]:.4f} ms/call "
-            f"(CUDA events, 10 calls), device "
-            f"{dev_us[what] if dev_us[what] is None else round(dev_us[what], 2)}"
-            f" us/call (torch.profiler), host enqueue {host_us[what]:.2f} "
-            f"us/call on {card}")
         if k not in geo:
             geo[k] = g = nk.window_table_slab_geometry(
                 lay[0].shape[0], pl.chunk, k, pl.window, n_species)
@@ -763,24 +918,30 @@ def profiled(run, n_frames, title, out_name):
 
 
 def device_us(fn, name, reps):
-    """Mean device time (us) per call of ``fn`` of the kernels whose name
-    holds ``name``, under torch.profiler over ``reps`` calls after one
-    warm-up; None where the profiler saw no such kernel."""
+    """Mean device time (us) of one launch of the kernels whose name holds
+    ``name``, under torch.profiler over ``reps`` calls of ``fn`` after one
+    warm-up: every caller's ``fn`` launches one such kernel, so this is
+    the time a call. The mean is over the launches the trace holds (a
+    trace can miss some); None where three traces hold none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    t = sum(e.self_device_time_total for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA
-            and name in e.key)
-    return t / reps if t > 0 else None
+    for _ in range(3):  # a trace that holds no launch is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) == DeviceType.CUDA
+                and name in e.key]
+        n = sum(e.count for e in seen)
+        if n:
+            return sum(e.self_device_time_total for e in seen) / n
+    return None
 
 
 def profile_step(batch, dev, n_frames=16):
@@ -810,17 +971,23 @@ def bound(n_bytes, n_ops):
                                        else "operations")
 
 
-def fused_work(args, meta, batch, slab, window_check=(16, 256, 1408)):
+def fused_work(args, meta, batch, counts, window_check=(16, 256, 1408)):
     """(bytes, f32 operations) of one call of kernels #1-#4 at the fused
     step's shapes: each input read once, each output written once; ~26
     operations per atom pair of the histogram, ~35 per candidate test of
-    the neighbour tables: for #4 the candidate rows each center scans,
-    for #3 the (live center, in-range real column) tests that these
-    inputs need (``slab_work`` counts ``slab``). #3 reads five rows of
-    each input matrix: 20 B a center (x, y, z, species, global index), 4
-    B of key for each column in a live chunk's runs and 20 B more for
-    each column that some chunk keeps, the runs' starts and key ranges
-    (36 B a chunk), the cell, its inverse and the cutoffs; it writes
+    the neighbour tables, counted over the tests that the inputs need:
+    for #3 the (live center, in-range real column) tests (``slab_work``
+    counts ``counts["window_table_slab"]``); for #4 (``window_work``,
+    ``counts["window_table"]``) ~13 for the y/z prefilter of each (live
+    center, real column within the exact fractional-x reach) pair (two
+    differences, two roundings, two subtractions, two absolute values, two
+    sums, two compares and the self test) and ~35 for the exact test of
+    each pair that passes it. #3 reads five rows of each input matrix:
+    20 B a center (x, y, z, species, global index), 4 B of key for each
+    column in a live chunk's runs and 20 B more for each column that some
+    chunk keeps, the runs' starts and key ranges (36 B a chunk), the cell,
+    its inverse and the cutoffs; it writes (16K + 4) B a center. #4 reads every sorted row once (x, y, z,
+    species: 16 B), the cell, its inverse and the cutoffs, and writes
     (16K + 4) B a center."""
     n = batch.num_atoms
     n_pad = args.positions.shape[1]
@@ -829,7 +996,8 @@ def fused_work(args, meta, batch, slab, window_check=(16, 256, 1408)):
     pairs = n * (n - 1) // 2
     plan = meta["bad_slab"]
     k = BENCH["max_neighbors"]
-    kk, chunk, w = window_check
+    kk = window_check[0]
+    slab, window = counts["window_table_slab"], counts["window_table"]
     n_pad_u = -(-n // BENCH["chunk"]) * BENCH["chunk"]
     return {
         "rdf_counts_blocked": (16 * n_pad + hist, 26 * pairs),
@@ -839,8 +1007,8 @@ def fused_work(args, meta, batch, slab, window_check=(16, 256, 1408)):
             + 20 * slab["kept_columns"] + 36 * slab["chunks"] + 72
             + 4 * s * s + (16 * k + 4) * plan.m_centers,
             35 * slab["tests"]),
-        "window_table": (16 * n_pad + 16 * kk * n_pad,
-                         35 * (chunk + 2 * w) * n_pad),
+        "window_table": (16 * n_pad + 72 + 4 * s * s + (16 * kk + 4) * n_pad,
+                         13 * window["tests"] + 35 * window["near"]),
     }
 
 
@@ -1813,6 +1981,74 @@ def entry_points(batch, box, pb, fused_out, fused_meta, dev, card):
     return launches, walls
 
 
+def cn_passes(batch, dev, card, n_frames=32):
+    """``cn.cn_columns`` on the first ``n_frames`` frames as a user calls
+    it on the card (the O(N^2) full pass), and the same frames through
+    the windowed pass (``pair_engine.frame_cn_counts_windowed``: sorted
+    windows and kernel #4 at K 32, the full pass again for a frame it
+    flags), as ``cn_columns`` takes it on the CPU; the columns must be
+    equal. Host clock around a synchronize, the full pass timed first.
+    Returns the times and the frames that fell back."""
+    import numpy as np
+    import torch
+
+    from amof_tpu_torch import cn
+    from amof_tpu_torch.ops import pair_engine
+
+    sub = excerpt(batch, n_frames)
+    steps = np.arange(n_frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = cn.cn_columns(sub, CUTOFFS, steps, device=dev)
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+
+    species = np.asarray(sub.species)
+    unique, z_to_idx = cn._species_table(species)
+    cut_np = cn._cutoff_matrix_for_species(CUTOFFS, unique, z_to_idx)
+    positions, species_idx = pair_engine.pad_atoms(
+        np.asarray(sub.positions, dtype=np.float32),
+        z_to_idx[species].astype(np.int32))
+    n_pad = positions.shape[1]
+    chunk = pair_engine._pick_chunk(n_pad)
+    cells = np.asarray(sub.cell, dtype=np.float32)
+    window = cn.sorted_window(cells, float(cut_np.max()), n_pad, chunk)
+    check(window is not None, "the bench frames should take a window")
+    pos = torch.from_numpy(positions).to(dev)
+    cells_t = torch.from_numpy(np.ascontiguousarray(cells)).to(dev)
+    inv = pair_engine.inverse_cell(cells_t)
+    sp = torch.from_numpy(species_idx).to(dev)
+    cut = torch.from_numpy(cut_np).to(dev)
+    s = len(unique)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts = torch.empty((n_frames, s, s), dtype=torch.float32, device=dev)
+    fell_back = 0
+    for f in range(n_frames):
+        cnt, missed = pair_engine.frame_cn_counts_windowed(
+            pos[f], cells_t[f], sp, cut, s, chunk, window, inv_cell=inv[f])
+        if bool(missed):
+            fell_back += 1
+            cnt = pair_engine.frame_cn_counts(pos[f], cells_t[f], sp, cut, s,
+                                              chunk, inv_cell=inv[f])
+        counts[f] = cnt
+    windowed = cn.cn_table(counts.cpu().numpy(), species, unique, z_to_idx,
+                           CUTOFFS, steps)
+    torch.cuda.synchronize()
+    t_win = time.perf_counter() - t0
+    for key, col in full.items():
+        check(np.array_equal(windowed[key], col),
+              f"cn column {key}: windowed pass != full pass")
+    say(f"cn passes ({n_frames} frames): full pass (cn.cn_columns) "
+        f"{t_full:.3f} s = {1e3 * t_full / n_frames:.2f} ms/frame; windowed "
+        f"pass (kernel #4 at K {pair_engine.CN_WINDOW_SLOTS}, chunk {chunk}, "
+        f"W {window}) {t_win:.3f} s = {1e3 * t_win / n_frames:.2f} ms/frame, "
+        f"{fell_back} frames fell back to the full pass; columns equal on "
+        f"{card}")
+    return {"full_s": t_full, "windowed_s": t_win, "frames": n_frames,
+            "fell_back": fell_back, "chunk": chunk, "window": window}
+
+
 def entry_cpu_parity(dev, n_atoms=2048):
     """Phase 5, entry points: a 2048-atom excerpt on the card and on the
     CPU (plain versions). RDF, both CNs exact; BAD and BadByCn counts with
@@ -1924,11 +2160,16 @@ def main():
         f"{meta['bad_window']}, ortho {meta['ortho']}")
 
     # 3. kernels vs plain
-    checks, fextras, slab_counts = kernel_checks(args, meta, batch, dev, card)
-    work = fused_work(args, meta, batch, slab_counts)
-    slab_bytes = work["window_table_slab"][0]
+    checks, fextras, table_counts = kernel_checks(args, meta, batch, dev,
+                                                  card)
+    work = fused_work(args, meta, batch, table_counts)
     fextras["window_table_slab"]["bound_ms_all_columns"] = bound(
-        slab_bytes, 35 * 3 * meta["bad_slab"].window * batch.num_atoms)[0]
+        work["window_table_slab"][0],
+        35 * 3 * meta["bad_slab"].window * batch.num_atoms)[0]
+    fextras["window_table"]["bound_ms_all_columns"] = bound(
+        work["window_table"][0],
+        35 * table_counts["window_table"]["width"]
+        * args.positions.shape[1])[0]
     geometry = rdf_geometry(args.positions.shape[1],
                             -(-batch.num_atoms // BENCH["chunk"])
                             * BENCH["chunk"], len(meta["unique"]),
@@ -1989,6 +2230,7 @@ def main():
     # 4, entry points: each analysis on its own, counted on its own
     entry_launches, entry_walls = entry_points(batch, box, pb, out, meta,
                                                dev, card)
+    cn_times = cn_passes(batch, dev, card)
 
     # 5. correctness against the plain path on the CPU
     cpu_parity(batch)
@@ -2057,7 +2299,8 @@ def main():
                       "pore_ms_per_frame": pore_ms,
                       "pore_prepare_s": pore_prep,
                       "pore_first_pass_misses": pore_miss,
-                      "entry_point_s": entry_walls, "cold_start": cold,
+                      "entry_point_s": entry_walls, "cn_passes": cn_times,
+                      "cold_start": cold,
                       "launch_path_us": host_us, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

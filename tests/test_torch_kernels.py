@@ -146,21 +146,6 @@ def test_rdf_global_atomics_mode_matches_plain(cuda):
     assert_same([got], [ref])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k,chunk,window", [(2, 100, 300), (8, 256, 512),
-                                            (40, 64, 200)])
-def test_window_kernel_matches_plain(cuda, k, chunk, window):
-    pos, cell, sp = case(3000, 3, 3, 36.0, triclinic=True, pad_from=2950)
-    p, c, s, cut = on(cuda, pos, cell, sp, CUTOFF)
-    inv = pair_engine.inverse_cell(c)
-    _, pos_s, sp_s = pair_engine.sort_by_fractional_x(p, s, inv)
-    args = (pos_s.contiguous(), sp_s.contiguous(), c, cut, k, chunk, window)
-    got = neighbor_kernel.window_table(*args)
-    ref = neighbor_kernel.window_table_plain(*args)
-    assert int(ref[2].max()) > 0
-    assert_same(got, ref)
-
-
 # bench.py's cutoffs on bench_glass's species (Zn, N, C, H)
 BENCH_CUT = np.zeros((4, 4), np.float32)
 for _a, _b, _c in ((0, 1, 2.0), (2, 2, 1.75), (2, 1, 1.73), (2, 3, 1.3)):
@@ -173,6 +158,18 @@ SLAB_CASES = [("4096 atoms, 3 species", 4), ("4096 atoms, 3 species", 16),
               ("bench, crowded", 16), ("empty runs", 8),
               ("whole-window runs", 8), ("overlapping runs", 8),
               ("unsorted keys", 8), ("staging flush", 8)]
+
+
+def crowd_first_zn(pos, cell, sp):
+    """Twenty N atoms of the bench glass moved within 1.0-1.7 A of the
+    first Zn (cnt > 16 there)."""
+    rng = np.random.default_rng(5)
+    off = rng.normal(0, 1, (20, 3))
+    off *= (rng.uniform(1.0, 1.7, 20) / np.linalg.norm(off, axis=1))[:, None]
+    n_zn = int((sp == 0).sum())
+    pos = pos.copy()
+    pos[n_zn:n_zn + 20] = (pos[0] + off) % np.diag(cell)
+    return pos
 
 
 def slab_case(dev, name):
@@ -191,12 +188,7 @@ def slab_case(dev, name):
         pos, cell, sp, _ = bench_glass(triclinic=name.endswith("triclinic"))
         cut = BENCH_CUT
         if name.endswith("crowded"):
-            rng = np.random.default_rng(5)
-            off = rng.normal(0, 1, (20, 3))
-            off *= (rng.uniform(1.0, 1.7, 20)
-                    / np.linalg.norm(off, axis=1))[:, None]
-            n_zn = int((sp == 0).sum())
-            pos[n_zn:n_zn + 20] = (pos[0] + off) % np.diag(cell)
+            pos = crowd_first_zn(pos, cell, sp)
     plan = slab_table.slab_plan(cell, float(cut.max()), len(sp),
                                 positions=pos[None], species_idx=sp)
     assert plan is not None
@@ -271,6 +263,104 @@ def test_slab_geometry_matches_wrapper(cuda):
         assert geo["registers"] > 0 and geo["blocks_per_sm"] > 0
 
 
+def reach_edge(pos, cell, sp, cut, n_edge=120):
+    """Atoms 2i and 2i + 1 (i < n_edge) made a pair of the largest cutoff
+    rc: the center at fractional x 0.99 or 0.01, its partner rc (1 + d)
+    away along the unit normal of the b x c plane (d from -2e-5 to 2e-5,
+    a few position ulps apart), so the pair sits at the cut's reach and
+    the partner lies outside the box."""
+    pos, sp = pos.copy(), sp.copy()
+    a, b = np.unravel_index(np.argmax(cut), cut.shape)
+    nrm = np.cross(cell[1].astype(np.float64), cell[2])
+    nrm /= np.linalg.norm(nrm)
+    rng = np.random.default_rng(7)
+    deltas = np.linspace(-2e-5, 2e-5, 41)
+    for i in range(n_edge):
+        frac = rng.uniform(0.2, 0.8, 3)
+        frac[0] = 0.99 if i % 2 == 0 else 0.01
+        sign = 1.0 if i % 2 == 0 else -1.0
+        c = frac @ cell.astype(np.float64)
+        pos[2 * i] = c
+        pos[2 * i + 1] = c + sign * nrm * float(cut[a, b]) * (
+            1 + deltas[i % len(deltas)])
+        sp[2 * i], sp[2 * i + 1] = a, b
+    return pos.astype(np.float32), sp
+
+
+WINDOW_CASES = [("3000 atoms, triclinic", 2, 100, 300),
+                ("3000 atoms, triclinic", 8, 256, 512),
+                ("3000 atoms, triclinic", 40, 64, 200),
+                ("3000 atoms, triclinic", 1024, 256, 512),
+                ("bench", 16, 256, 1408), ("bench", 32, 256, 1408),
+                ("bench", 16, 100, 1408), ("bench", 128, 256, 1408),
+                ("bench, triclinic", 16, 256, 1408),
+                ("bench, crowded", 16, 256, 1408),
+                ("reach edge", 16, 256, 512),
+                ("reach edge, triclinic", 16, 256, 512)]
+
+
+def window_case(dev, name):
+    """Kernel #4's inputs (pos_sorted, sp_sorted, cell, cutoff) on the
+    card, sorted by fractional x: a random 3000-atom triclinic system with
+    pads; the bench glass's 10240 atoms (cubic, triclinic, crowded); and
+    pairs at the cut's reach, partners outside the box (``reach_edge``)."""
+    if name.startswith("3000"):
+        pos, cell, sp = case(3000, 3, 3, 36.0, triclinic=True, pad_from=2950)
+        cut = CUTOFF
+    elif name.startswith("bench"):
+        pos, cell, sp, _ = bench_glass(triclinic=name.endswith("triclinic"))
+        cut = BENCH_CUT
+        if name.endswith("crowded"):
+            pos = crowd_first_zn(pos, cell, sp)
+    else:
+        pos, cell, sp = case(3000, 3, 9, 36.0,
+                             triclinic=name.endswith("triclinic"),
+                             pad_from=2990)
+        cut = CUTOFF
+        pos, sp = reach_edge(pos, cell, sp, cut)
+    p, c, s, ct = on(dev, pos, cell, sp, cut)
+    inv = pair_engine.inverse_cell(c)
+    _, pos_s, sp_s = pair_engine.sort_by_fractional_x(p, s, inv)
+    return pos_s.contiguous(), sp_s.contiguous(), c, ct
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,k,chunk,window", WINDOW_CASES)
+def test_window_kernel_matches_plain(cuda, name, k, chunk, window):
+    """Kernel #4 vs its plain version, all three outputs exact: a random
+    triclinic system with pads (K 2 to 1024, chunk 100 and 64: chunks 16
+    does not divide), the bench glass at the fused reruns' chunk 256 and
+    W 1408 (K 16, 32, 128; chunk 100, which leaves a short last chunk;
+    triclinic; crowded, cnt > K) and pairs at the cut's reach with
+    partners outside the box; ten repeated calls into memory the
+    allocator last gave to a tensor of -1s give equal outputs; the C
+    launch shape is the one ``window_table_geometry`` reports and the
+    twin assumes."""
+    pos_s, sp_s, c, ct = window_case(cuda, name)
+    args = (pos_s, sp_s, c, ct, k, chunk, window)
+    ref = neighbor_kernel.window_table_plain(*args)
+    assert int(ref[2].sum()) > 0
+    if name.endswith("crowded") or k <= 2:
+        assert int(ref[2].max()) > k
+    n = pos_s.shape[0]
+    for _ in range(10):
+        junk = torch.full((n * (4 * k + 1),), -1, dtype=torch.int32,
+                          device=cuda)
+        del junk
+        assert_same(neighbor_kernel.window_table(*args), ref)
+    geo = neighbor_kernel.window_table_geometry(n, chunk, k, window,
+                                                ct.shape[0])
+    cpb = neighbor_kernel.window_centers_per_block(chunk, k)
+    first, _, _ = neighbor_kernel.window_blocks(n, chunk, k)
+    assert geo["cpb"] == cpb and geo["blocks"] == first.numel()
+    assert geo["bpc"] == -(-chunk // cpb)
+    assert geo["cpw"] == (1 if cpb <= 4 else 2 if cpb <= 8 else 4)
+    assert geo["cap"] == min(chunk + 2 * window, neighbor_kernel.SLAB_PASS)
+    assert geo["smem_bytes"] == (32 * geo["cap"] + 16 * cpb * k
+                                 + 4 * ct.shape[0] ** 2)
+    assert geo["registers"] > 0 and geo["blocks_per_sm"] > 0
+
+
 @pytest.mark.cuda
 def test_wrappers_count_launches_and_check_inputs(cuda):
     pos, cell, sp = case(512, 2, 5, 20.0)
@@ -298,6 +388,19 @@ def test_wrappers_count_launches_and_check_inputs(cuda):
         with pytest.raises(ValueError):
             neighbor_kernel.window_table_slab(*args[:i], bad, *args[i + 1:])
     assert neighbor_kernel.LAUNCHES["window_table_slab"] == before + 1
+
+    pos_s, sp_s, c, ct = window_case(cuda, "3000 atoms, triclinic")
+    args = [pos_s, sp_s, c, ct, 8, 256, 512]
+    before = neighbor_kernel.LAUNCHES["window_table"]
+    neighbor_kernel.window_table(*args)
+    assert neighbor_kernel.LAUNCHES["window_table"] == before + 1
+    neighbor_kernel.window_table_plain(*args)
+    assert neighbor_kernel.LAUNCHES["window_table"] == before + 1
+    for i, bad in ((0, pos_s.double()), (1, sp_s.long()), (2, c.t()),
+                   (3, ct.cpu()), (0, pos_s[:-1])):
+        with pytest.raises(ValueError):
+            neighbor_kernel.window_table(*args[:i], bad, *args[i + 1:])
+    assert neighbor_kernel.LAUNCHES["window_table"] == before + 1
 
 
 @pytest.mark.cuda
