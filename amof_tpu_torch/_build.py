@@ -49,13 +49,14 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (every one returns cudaError_t as int)
 _SIGNATURES = {
     "rdf_blocked_launch": (
         _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P,
     ),
     "rdf_hist_launch": (
-        _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P,
+        _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P, _P, _L, _P, _P,
     ),
     "rdf_hist_geometry": (_I, _I, _I, _I, _I, _P),
     "rdf_root_check_launch": (_P, _P),

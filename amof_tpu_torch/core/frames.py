@@ -206,8 +206,14 @@ class Trajectory:
     @classmethod
     def from_traj(cls, filename, index=None, format=None, unzip=False):
         """Read a trajectory file (parity: amof/trajectory.py:38-60;
-        gzip is handled transparently regardless of ``unzip``)."""
-        del format, unzip
+        gzip is handled transparently regardless of ``unzip``). The port
+        reads xyz and extxyz only: any other ``format`` (LAMMPS, CP2K, ...)
+        raises ValueError rather than being read as xyz."""
+        del unzip
+        if format not in (None, "xyz", "extxyz"):
+            raise ValueError(
+                f"Trajectory.from_traj: format {format!r} is not read by "
+                f"amof_tpu_torch (xyz and extxyz only)")
         from amof_tpu_torch.io.xyz import read_xyz
 
         frames = read_xyz(filename, index if index is not None else ":")

@@ -22,8 +22,14 @@ Counterpart of ``amof_tpu/ops/pallas_rdf.py``:
     wrapper runs that check once per device before its first launch and
     raises where it fails;
   * ``rdf_counts`` replaces ``pallas_rdf_counts`` (kernel #2): any atom
-    order, the whole ``S*S*bins`` histogram in shared memory when it fits
-    (opt-in above 48 KB), else atomics straight to device memory.
+    order. It takes #1's items from its own queue, #1's cut and root, and
+    counts each unordered species pair under one key (min, max), so its
+    histogram is ``S(S+1)/2 * bins`` ints: in shared memory when that fits
+    ``SMEM_LIMIT`` (zeroed and merged once a block), else device-memory
+    atomics past the cut only. A second kernel of the same launch writes
+    the float32 [S, S, bins] result (the symmetrize of the plain version),
+    so the wrapper allocates the output alone. The same root check and
+    ``dr`` refusal as #1's hold.
 
 Both launch ``csrc/rdf_hist.cu`` (see its header for the design, what
 bounds it and why its floors are exact) for CUDA tensors and run the
@@ -34,6 +40,9 @@ histogram on this card.
 
 Counts are integers and equal the plain version's bit for bit: same
 expression order, no FMA contraction, IEEE sqrt, ``inv_dr = f32(1/dr)``.
+Kernel #2's folded key makes its float32 [a, b] entry the float32 of
+the sum of the two orders' counts, where the plain version adds the two
+float32: equal while every count is below 2^24 (see ``rdf_counts``).
 """
 
 from __future__ import annotations
@@ -52,6 +61,19 @@ LAUNCHES = {"rdf_counts_blocked": 0, "rdf_counts": 0}
 MODE_BLOCKED, MODE_SMEM_ALL, MODE_GLOBAL = 0, 1, 2
 SMEM_LIMIT = 220 * 1024  # dynamic shared memory one block may opt into
 TILE = 256  # atoms per tile side in csrc/rdf_hist.cu
+
+
+def fold_ints(n_species: int, bins: int) -> int:
+    """Ints of kernel #2's histogram: one row of ``bins`` for each
+    unordered species pair, padded to a multiple of 4."""
+    return -(-(n_species * (n_species + 1) // 2 * bins) // 4) * 4
+
+
+def smem_mode(n_species: int, bins: int) -> int:
+    """Kernel #2's mode: its histogram and S x S key table in shared
+    memory when they fit ``SMEM_LIMIT``, else MODE_GLOBAL."""
+    fits = 4 * (fold_ints(n_species, bins) + n_species ** 2) <= SMEM_LIMIT
+    return MODE_SMEM_ALL if fits else MODE_GLOBAL
 
 
 # --------------------------------------------------------------------------
@@ -222,18 +244,36 @@ def _check_inputs(positions, cell, species_idx, inv_cell):
             raise ValueError("inputs must be contiguous")
 
 
-_QUEUES = {}  # (device index, stream) -> pointer of kernel #1's work queue
+_QUEUES = {}  # (device index, stream) -> the kernels' work queues
 
 
 def _queue(device, stream) -> int:
-    """Kernel #1's work queue on this device and stream: two int32, zeroed
-    once here and left zero by every launch (its last block resets them).
-    One per stream, so launches on two streams never share one."""
+    """The work queues on this device and stream: two int32 for kernel
+    #1, then two for kernel #2 (at +8 bytes), zeroed once here and left
+    zero by every launch (its last block resets them). One per stream, so
+    launches on two streams never share one."""
     key = (device.index, stream)
     buf = _QUEUES.get(key)
     if buf is None:
-        buf = _QUEUES[key] = torch.zeros(2, dtype=torch.int32, device=device)
+        buf = _QUEUES[key] = torch.zeros(4, dtype=torch.int32, device=device)
     return buf.data_ptr()
+
+
+_HISTS = {}  # (device index, stream) -> kernel #2's device histogram
+
+
+def _device_hist(device, stream, n_species, bins):
+    """Kernel #2's device histogram on this device and stream, as
+    (pointer, ints): zeroed when it is made and left zero by every launch
+    (its fold kernel clears what it reads); grown when a launch needs
+    more. One per stream, so launches on two streams never share one."""
+    need = fold_ints(n_species, bins)
+    key = (device.index, stream)
+    buf = _HISTS.get(key)
+    if buf is None or buf.numel() < need:
+        buf = _HISTS[key] = torch.zeros(need, dtype=torch.int32,
+                                        device=device)
+    return buf.data_ptr(), buf.numel()
 
 
 def _launch(name, mode, positions, cell, species_idx, dr, n_species, bins,
@@ -241,34 +281,44 @@ def _launch(name, mode, positions, cell, species_idx, dr, n_species, bins,
     from amof_tpu_torch import _build
 
     _check_inputs(positions, cell, species_idx, inv_cell)
-    out = torch.zeros(n_species * n_species * bins, dtype=torch.int32,
-                      device=positions.device)
+    inv_dr = float(np.float32(1.0 / dr))
+    if inv_dr >= 2.0 ** 50:
+        # below d2 = 2^-100 the kernels bin max(d2, 2^-100): bin 0 only
+        # while 2^-50 * inv_dr < 1
+        raise ValueError(f"{name} needs dr > 2^-50 A")
+    dev = positions.device
+    _require_exact_root(dev)
     lib = _build.library()
+    n = positions.shape[0]
     args = (positions.data_ptr(), species_idx.data_ptr(), cell.data_ptr(),
-            inv_cell.data_ptr(), positions.shape[0], n_species, bins,
-            float(np.float32(1.0 / dr)))
+            inv_cell.data_ptr(), n, n_species, bins, inv_dr,
+            d2_cut(dr, bins))
     stream = _build.stream_ptr(positions)
+    queue = _queue(dev, stream)
     if mode == MODE_BLOCKED:
-        err = lib.rdf_blocked_launch(*args, d2_cut(dr, bins),
-                                     int(bool(ortho)),
-                                     _queue(positions.device, stream),
+        out = torch.zeros(n_species * n_species * bins, dtype=torch.int32,
+                          device=dev)
+        err = lib.rdf_blocked_launch(*args, int(bool(ortho)), queue,
                                      out.data_ptr(), stream)
     else:
-        err = lib.rdf_hist_launch(*args, mode, int(bool(ortho)),
-                                  out.data_ptr(), stream)
+        out = torch.empty((n_species, n_species, bins), dtype=torch.float32,
+                          device=dev)
+        hist, cap = _device_hist(dev, stream, n_species, bins)
+        err = lib.rdf_hist_launch(*args, mode, int(bool(ortho)), queue + 8,
+                                  hist, cap, out.data_ptr(), stream)
     _build.check(err, name)
     LAUNCHES[name] += 1
-    return _symmetrize(out, n_species, bins)
+    return _symmetrize(out, n_species, bins) if mode == MODE_BLOCKED else out
 
 
 def launch_geometry(mode: int, n: int, n_species: int, bins: int,
                     ortho: bool = False) -> dict:
     """What a launch at these shapes gets on the current card: blocks,
     threads a block, dynamic shared bytes, resident blocks per SM,
-    registers a thread, work items (kernel #1's queue items; #2: its
-    blocks) and waves (blocks over the resident slots of every SM; kernel
-    #1's persistent grid is at most one). ``mode``: MODE_BLOCKED for
-    kernel #1, else kernel #2's mode."""
+    registers a thread, work items (the queue's 256 x 128-slot items) and
+    waves (blocks over the resident slots of every SM; a persistent grid
+    is at most one). ``mode``: MODE_BLOCKED for kernel #1, else kernel
+    #2's mode (``smem_mode``)."""
     from amof_tpu_torch import _build
 
     geo = (ctypes.c_int * 6)()
@@ -283,9 +333,9 @@ def launch_geometry(mode: int, n: int, n_species: int, bins: int,
 
 
 def root_mismatches(device="cuda") -> int:
-    """How many float32 x in [2^-100, FLT_MAX] kernel #1's root (the fast
+    """How many float32 x in [2^-100, FLT_MAX] the kernels' root (the fast
     path of the IEEE square root, without its range test) gives unlike
-    ``sqrtf``: 0 makes the kernel's bins exact. Card only."""
+    ``sqrtf``: 0 makes their bins exact. Card only."""
     from amof_tpu_torch import _build
 
     bad = torch.zeros(1, dtype=torch.int32, device=device)
@@ -298,16 +348,16 @@ _ROOT_CHECKED = set()  # device indices where root_mismatches() gave 0
 
 
 def _require_exact_root(device):
-    """Kernel #1's bins are exact only where its root equals ``sqrtf``:
-    check that once per device (a few ms, at the first launch) and raise
-    where it does not hold."""
+    """The kernels' bins are exact only where their root equals ``sqrtf``:
+    check that once per device (a few ms, at the first launch of #1 or
+    #2) and raise where it does not hold."""
     if device.index in _ROOT_CHECKED:
         return
     bad = root_mismatches(device)
     if bad:
         raise RuntimeError(
-            f"rdf_counts_blocked: on this card the kernel's root differs "
-            f"from sqrtf on {bad} float32 values, so its bins would not be "
+            f"rdf kernels: on this card the kernels' root differs from "
+            f"sqrtf on {bad} float32 values, so their bins would not be "
             f"exact")
     _ROOT_CHECKED.add(device.index)
 
@@ -318,19 +368,13 @@ def rdf_counts_blocked(positions, cell, species_idx, dr: float,
     """Kernel #1: float32 [S, S, bins] ordered-pair histogram of one frame
     in ``species_block_layout`` order (block a multiple of 256 for full
     speed; any order gives the same counts). Above ``SMEM_LIMIT`` bytes of
-    bins it takes kernel #2's device-memory atomics."""
+    bins it takes kernel #2's device-memory atomics (MODE_GLOBAL)."""
     if inv_cell is None:
         inv_cell = inverse_cell(cell)
     if positions.device.type == "cpu":
         return rdf_counts_plain(positions, cell, species_idx, dr, n_species,
                                 bins, ortho, inv_cell)
     mode = MODE_BLOCKED if bins * 4 <= SMEM_LIMIT else MODE_GLOBAL
-    if mode == MODE_BLOCKED and np.float32(1.0 / dr) >= 2.0 ** 50:
-        # below d2 = 2^-100 the kernel bins max(d2, 2^-100): bin 0 only
-        # while 2^-50 * inv_dr < 1
-        raise ValueError("rdf_counts_blocked needs dr > 2^-50 A")
-    if mode == MODE_BLOCKED:
-        _require_exact_root(positions.device)
     return _launch("rdf_counts_blocked", mode, positions, cell, species_idx,
                    dr, n_species, bins, ortho, inv_cell)
 
@@ -338,13 +382,15 @@ def rdf_counts_blocked(positions, cell, species_idx, dr: float,
 def rdf_counts(positions, cell, species_idx, dr: float, n_species: int,
                bins: int, ortho: bool = False, inv_cell=None):
     """Kernel #2: float32 [S, S, bins] ordered-pair histogram of one frame
-    in any atom order (species -1 marks padding)."""
+    in any atom order (species -1 marks padding). Equal to the plain
+    version bit for bit while every count of an unordered species pair
+    and bin is below 2^24 (beyond that the plain version's float32 sum of
+    the two orders and the kernel's float32 of their sum may round
+    apart); a frame of at most 5793 atoms always is."""
     if inv_cell is None:
         inv_cell = inverse_cell(cell)
     if positions.device.type == "cpu":
         return rdf_counts_plain(positions, cell, species_idx, dr, n_species,
                                 bins, ortho, inv_cell)
-    fits = n_species * n_species * bins * 4 <= SMEM_LIMIT
-    return _launch("rdf_counts", MODE_SMEM_ALL if fits else MODE_GLOBAL,
-                   positions, cell, species_idx, dr, n_species, bins, ortho,
-                   inv_cell)
+    return _launch("rdf_counts", smem_mode(n_species, bins), positions, cell,
+                   species_idx, dr, n_species, bins, ortho, inv_cell)

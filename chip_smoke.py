@@ -13,8 +13,15 @@ Phases, each reported on its own line(s) of standard output:
      integer outputs must be equal, and so must the neighbour positions.
      Kernel #1 also on a triclinic frame and an order that breaks its
      blocked contract, its root against sqrtf on every float32 in
-     [2^-100, FLT_MAX], and the registers (ptxas), resident blocks per SM
-     and waves of kernels #1 and #2. Kernel #3 (the slab table) also on
+     [2^-100, FLT_MAX], its device time under the profiler and host
+     enqueue time on bench frame 0, and the registers (ptxas), resident
+     blocks per SM and waves of kernels #1 and #2. Kernel #2 (any atom
+     order) at four shapes (``rdf_unblocked_cases``): bench frame 0 in
+     ``pad_atoms`` order, the RDF-integral CN's call on it (dr 0.0001),
+     a triclinic frame and the 272-atom side-run cell, each with
+     CUDA-event, profiler device and host enqueue times, its counts
+     (pairs, pairs under the cut), geometry and recounted bound
+     (``rdf_any_work``). Kernel #3 (the slab table) also on
      bench frame 0 at K 16 (the ``Bad`` entry points' call) and on a
      crowded frame at K 16 (one Zn with twenty added N neighbours, so
      cnt > K): each case with CUDA-event, profiler device and host
@@ -220,6 +227,12 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def us2(v):
+    """A device time for a line of output: None (not measured) or rounded
+    to 0.01 us."""
+    return v if v is None else round(v, 2)
+
+
 def max_abs_err(got, ref):
     err = 0.0
     for g, r in zip(got, ref):
@@ -231,9 +244,10 @@ def kernel_checks(args, meta, batch, dev, card, frames=(0, 1, 2),
                   window_check=(16, 256, 1408)):
     """Phase 3: every kernel vs its plain version at the main path's
     shapes. Returns ({name: (max_abs_err, ms, plain_ms)}, {name: more
-    keys of its kernel JSON}, {"window_table_slab": kernel #3's
-    ``slab_work`` counts on bench frame 0 at K 8, "window_table": kernel
-    #4's ``window_work`` counts on bench frame 0 at ``window_check``})."""
+    keys of its kernel JSON}, {"rdf_counts": kernel #2's counts at shape
+    (a), "window_table_slab": kernel #3's ``slab_work`` counts on bench
+    frame 0 at K 8, "window_table": kernel #4's ``window_work`` counts on
+    bench frame 0 at ``window_check``})."""
     import numpy as np
     import torch
 
@@ -280,7 +294,22 @@ def kernel_checks(args, meta, batch, dev, card, frames=(0, 1, 2),
             pos[f], cells[f], sp, dr, s, bins, ortho=ortho, inv_cell=inv[f]),
     )
 
-    rdf_blocked_side_checks(pos[frames[0]], cells[frames[0]], sp, s, bins)
+    f0 = frames[0]
+
+    def blocked0():
+        return rdf_kernel.rdf_counts_blocked(
+            pos[f0], cells[f0], sp, dr, s, bins, ortho=ortho, inv_cell=inv[f0])
+
+    kern, every = (device_us(blocked0, k, reps=10)
+                   for k in ("rdf_blocked_kernel", None))
+    host = host_enqueue_us(blocked0)
+    blocked_extras = {"device_us": kern, "device_all_us": every,
+                      "host_us": host}
+    say(f"kernel rdf_counts_blocked on bench frame 0: device {us2(kern)} "
+        f"us/call in its kernel, {us2(every)} us/call in all device work "
+        f"(torch.profiler, 10 calls), host enqueue {host:.2f} us/call on "
+        f"{card}")
+    rdf_blocked_side_checks(pos[f0], cells[f0], sp, s, bins)
 
     # kernel #2 on the bench trajectory in its own (unblocked) order
     unique, z_to_idx = _species_table(batch.species)
@@ -298,6 +327,9 @@ def kernel_checks(args, meta, batch, dev, card, frames=(0, 1, 2),
             pos_u[f], cells[f], sp_u, dr, s, bins, ortho=ortho,
             inv_cell=inv[f]),
     )
+    rdf_extras, rdf_counts = rdf_unblocked_cases(
+        pos_u[frames[0]], sp_u, cells[frames[0]], inv[frames[0]], s, bins,
+        ortho, dev, card)
 
     plan = meta["bad_slab"]
     check(plan is not None, "bench shapes should get a slab plan")
@@ -333,9 +365,11 @@ def kernel_checks(args, meta, batch, dev, card, frames=(0, 1, 2),
     window_extras, window_counts = window_kernel_cases(
         (srt[frames[0]], cells[frames[0]], cut, inv[frames[0]]),
         window_check, batch, dev, card)
-    return (res, {"window_table_slab": slab_extras,
+    return (res, {"rdf_counts_blocked": blocked_extras,
+                  "rdf_counts": rdf_extras, "window_table_slab": slab_extras,
                   "window_table": window_extras},
-            {"window_table_slab": slab_counts, "window_table": window_counts})
+            {"rdf_counts": rdf_counts, "window_table_slab": slab_counts,
+             "window_table": window_counts})
 
 
 def window_work(srt, cell, cut, inv, k, chunk, w, cnt):
@@ -684,6 +718,127 @@ def rdf_blocked_side_checks(pos, cell, sp, s, bins):
             f"{ms:.3f} ms/call")
 
 
+# f32 operations of kernel #2 a pair: the minimum-image d2 (ortho: 3
+# differences, 3 scalings, 3 wraps of add, floor and subtract, 3 scalings
+# back, 3 squares and 2 sums; general: 9 products and 6 sums each way) and
+# the cut's compare; a kept pair adds the root (max, rsqrt, 2 products and
+# 2 FMAs), the bin (product, add and subtract of the magic floor), the key
+# (lookup, add) and the count
+RDF_D2_OPS = {True: 24, False: 48}
+RDF_KEPT_OPS = 12
+RDF2_KERNELS = ("rdf_any_kernel", "rdf_fold_kernel")
+
+
+def rdf_any_work(cnt):
+    """(bytes, f32 operations) of one kernel #2 call on a case's counts
+    (``rdf_unblocked_cases``): every slot read once (x, y, z, species: 16
+    B), the float32 [S, S, bins] result written once, the folded device
+    histogram written and read once, each block's shared histogram sent
+    out once (not in MODE_GLOBAL, where each kept pair is a 4-B device
+    atomic instead); the d2 and the cut for every real pair, the rest for
+    the pairs under the cut."""
+    from amof_tpu_torch.ops import rdf_kernel
+
+    s, bins = cnt["n_species"], cnt["bins"]
+    fold = 4 * (s * (s + 1) // 2 * bins)
+    merge = (4 * cnt["under"] if cnt["mode"] == rdf_kernel.MODE_GLOBAL
+             else cnt["blocks"] * fold)
+    return (16 * cnt["slots"] + 4 * s * s * bins + 2 * fold + merge,
+            RDF_D2_OPS[cnt["ortho"]] * cnt["pairs"]
+            + RDF_KEPT_OPS * cnt["under"])
+
+
+def rdf_unblocked_cases(pos_u, sp_u, cell, inv, s, bins, ortho, dev, card):
+    """Kernel #2 at the shapes of its callers: (a) bench frame 0 in
+    ``pair_engine.pad_atoms`` order at dr 0.01 (the PERF.md row); (b) the
+    RDF-integral CN's call on it (dr 0.0001, bins to the largest cutoff,
+    the general template, as ``rdf.rdf_cn_columns`` calls it); (c) the
+    same fractional coordinates in a triclinic cell; (d) the 272-atom cell
+    of the side run, as ``FusedAnalysis`` (chunk 64) lays it out. Each is
+    held equal to the plain version and timed: CUDA events (10 calls after
+    2), device time under the profiler of #2's kernels a call and of all
+    device work a call (10 calls), host enqueue time; a counts line
+    (slots, real pairs, pairs under the cut), the launch geometry and the
+    bound recounted from the case's inputs (``rdf_any_work``). Returns
+    (kernel JSON keys, the counts of case (a))."""
+    import torch
+
+    from amof_tpu_torch.ops import rdf_kernel
+    from amof_tpu_torch.ops.pair_engine import inverse_cell
+    from amof_tpu_torch.parallel.pipeline import FusedAnalysis
+
+    dr = BENCH["dr"]
+    box = float(cell[0, 0])
+    tri = torch.tensor([[box, 0, 0], [box / 4, box, 0],
+                        [box / 8, -box / 5, box]], dtype=torch.float32,
+                       device=dev)
+    small, _ = make_trajectory(1, 272, seed=1)
+    _, sargs, smeta = FusedAnalysis(
+        CUTOFFS, **{**BENCH, "chunk": 64}).prepare(small, device=dev)
+    check(not smeta["blocked"], "272-atom cell should not be blocked")
+    cases = {
+        "(a) bench frame 0": (pos_u, cell, inv, sp_u, dr, bins, ortho),
+        "(b) RDF-integral CN call": (
+            pos_u, cell, inv, sp_u, 0.0001,
+            int(max(CUTOFFS.values()) // 0.0001), False),
+        "(c) triclinic frame": (((pos_u @ inv) @ tri).contiguous(), tri,
+                                inverse_cell(tri), sp_u, dr, bins, False),
+        "(d) 272-atom cell": (sargs.positions[0], sargs.cells[0],
+                              sargs.inv_cells[0], sargs.species_idx, dr,
+                              smeta["bins"], smeta["ortho"]),
+    }
+    out = {k: {} for k in ("cases_ms", "device_us", "device_all_us",
+                           "host_us", "counts", "geometry", "bounds")}
+    for what, (p, c, iv, t, d, b, o) in cases.items():
+        def call(p=p, c=c, iv=iv, t=t, d=d, b=b, o=o):
+            return rdf_kernel.rdf_counts(p, c, t, d, s, b, ortho=o,
+                                         inv_cell=iv)
+
+        ref = rdf_kernel.rdf_counts_plain(p, c, t, d, s, b, ortho=o,
+                                          inv_cell=iv)
+        got = call()
+        torch.cuda.synchronize()
+        check(float(ref.sum()) > 0, f"rdf_counts {what}: empty")
+        check(torch.equal(got, ref), f"rdf_counts: kernel != plain on {what}"
+              f" (max |diff| {max_abs_err([got], [ref])})")
+        ms = cuda_ms(call, reps=10, warmup=2)
+        kern = [device_us(call, k, reps=10) for k in RDF2_KERNELS]
+        kern = None if None in kern else sum(kern)
+        every = device_us(call, None, reps=10)
+        host = host_enqueue_us(call)
+        mode = rdf_kernel.smem_mode(s, b)
+        geo = rdf_kernel.launch_geometry(mode, p.shape[0], s, b, o)
+        n_real = int((t >= 0).sum())
+        cnt = {"slots": p.shape[0], "atoms": n_real,
+               "pairs": n_real * (n_real - 1) // 2,
+               "under": int(ref.sum()) // 2, "n_species": s, "bins": b,
+               "dr": d, "ortho": bool(o), "mode": mode,
+               "blocks": geo["blocks"]}
+        bound_ms, bound_by = bound(*rdf_any_work(cnt))
+        for key, val in (("cases_ms", ms), ("device_us", kern),
+                         ("device_all_us", every), ("host_us", host),
+                         ("counts", cnt), ("geometry", geo),
+                         ("bounds", {"bound_ms": bound_ms,
+                                     "bound_by": bound_by})):
+            out[key][what] = val
+        say(f"rdf unblocked, {what}: {cnt['slots']} slots, {n_real} atoms, "
+            f"{cnt['pairs']} pairs, {cnt['under']} under the cut "
+            f"({100 * cnt['under'] / cnt['pairs']:.2f}%), dr {d}, {b} bins, "
+            f"ortho {bool(o)}, mode {mode} (equal to plain)")
+        say(f"kernel rdf_counts on {what}: {ms:.4f} ms/call (CUDA events, 10 "
+            f"calls), device {us2(kern)} us/call in #2's kernels, "
+            f"{us2(every)} us/call in all device work (torch.profiler), host "
+            f"enqueue {host:.2f} us/call on {card}")
+        say(f"geometry rdf_counts ({what}): {geo['blocks']} blocks of "
+            f"{geo['threads']} threads for {geo['items']} work items, "
+            f"{geo['smem_bytes']} B dynamic shared, {geo['registers']} "
+            f"registers, {geo['blocks_per_sm']} blocks/SM on {geo['sms']} "
+            f"SMs: {geo['waves']:.2f} waves")
+        say(f"bound rdf_counts ({what}): {bound_ms:.4f} ms ({bound_by}) vs "
+            f"{ms:.4f} ms on {card}")
+    return out, out["counts"]["(a) bench frame 0"]
+
+
 def rdf_geometry(n, n_u, s, bins, ortho):
     """Registers (ptxas and the runtime), resident blocks per SM and waves
     of kernels #1 (``n`` slots, blocked layout) and #2 (``n_u`` slots) at
@@ -704,12 +859,10 @@ def rdf_geometry(n, n_u, s, bins, ortho):
                 used = line.split(":", 1)[1].strip()
                 say(f"ptxas rdf_hist.cu {entry}: {used}")
                 entry = None
-    fits = s * s * bins * 4 <= rdf_kernel.SMEM_LIMIT
     out = {}
     for name, mode, slots in (
             ("rdf_counts_blocked", rdf_kernel.MODE_BLOCKED, n),
-            ("rdf_counts", rdf_kernel.MODE_SMEM_ALL if fits
-             else rdf_kernel.MODE_GLOBAL, n_u)):
+            ("rdf_counts", rdf_kernel.smem_mode(s, bins), n_u)):
         geo = rdf_kernel.launch_geometry(mode, slots, s, bins, ortho)
         out[name] = geo
         say(f"geometry {name}: {geo['blocks']} blocks of {geo['threads']} "
@@ -922,7 +1075,9 @@ def device_us(fn, name, reps):
     ``name``, under torch.profiler over ``reps`` calls of ``fn`` after one
     warm-up: every caller's ``fn`` launches one such kernel, so this is
     the time a call. The mean is over the launches the trace holds (a
-    trace can miss some); None where three traces hold none."""
+    trace can miss some); None where three traces hold none. ``name``
+    None: every device event (kernels, memsets, copies) over ``reps``, the
+    device time a call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -937,8 +1092,8 @@ def device_us(fn, name, reps):
             torch.cuda.synchronize()
         seen = [e for e in prof.key_averages()
                 if getattr(e, "device_type", None) == DeviceType.CUDA
-                and name in e.key]
-        n = sum(e.count for e in seen)
+                and (name is None or name in e.key)]
+        n = reps if name is None and seen else sum(e.count for e in seen)
         if n:
             return sum(e.self_device_time_total for e in seen) / n
     return None
@@ -974,7 +1129,9 @@ def bound(n_bytes, n_ops):
 def fused_work(args, meta, batch, counts, window_check=(16, 256, 1408)):
     """(bytes, f32 operations) of one call of kernels #1-#4 at the fused
     step's shapes: each input read once, each output written once; ~26
-    operations per atom pair of the histogram, ~35 per candidate test of
+    operations per atom pair of #1's histogram (#2: ``rdf_any_work`` on
+    the counts of its shape (a), ``counts["rdf_counts"]``), ~35 per
+    candidate test of
     the neighbour tables, counted over the tests that the inputs need:
     for #3 the (live center, in-range real column) tests (``slab_work``
     counts ``counts["window_table_slab"]``); for #4 (``window_work``,
@@ -998,10 +1155,9 @@ def fused_work(args, meta, batch, counts, window_check=(16, 256, 1408)):
     k = BENCH["max_neighbors"]
     kk = window_check[0]
     slab, window = counts["window_table_slab"], counts["window_table"]
-    n_pad_u = -(-n // BENCH["chunk"]) * BENCH["chunk"]
     return {
         "rdf_counts_blocked": (16 * n_pad + hist, 26 * pairs),
-        "rdf_counts": (16 * n_pad_u + hist, 26 * pairs),
+        "rdf_counts": rdf_any_work(counts["rdf_counts"]),
         "window_table_slab": (
             20 * plan.m_centers + 4 * slab["key_columns"]
             + 20 * slab["kept_columns"] + 36 * slab["chunks"] + 72

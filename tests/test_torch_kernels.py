@@ -146,6 +146,122 @@ def test_rdf_global_atomics_mode_matches_plain(cuda):
     assert_same([got], [ref])
 
 
+def shuffled_with_pads(pos, sp, seed, n_pads):
+    """A random order of the atoms with ``n_pads`` pad slots (species -1,
+    position 0) at random places among them."""
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(sp))
+    pos, sp = pos[order], sp[order]
+    at = np.sort(rng.choice(len(sp) + n_pads, n_pads, replace=False))
+    keep = np.ones(len(sp) + n_pads, bool)
+    keep[at] = False
+    p = np.zeros((len(keep), 3), np.float32)
+    s = np.full(len(keep), -1, np.int32)
+    p[keep], s[keep] = pos, sp
+    return p, s
+
+
+# kernel #2's card shapes: (a) the bench frame at dr 0.01, (b) the
+# RDF-integral CN's call (dr 0.0001, bins to 2 A, general template, device
+# histogram), (c) a triclinic cell, (d) the 272-atom cell of the side run
+UNBLOCKED_CASES = ["(a) bench, dr 0.01", "(b) CN, dr 0.0001",
+                   "(c) triclinic, dr 0.01", "(d) 272 atoms, dr 0.01"]
+
+
+def unblocked_case(name):
+    """(positions, cell, species, n_species, dr, bins, ortho) of kernel
+    #2's card cases, each in a random order with pads among the atoms."""
+    n = 272 if name.startswith("(d)") else 10240
+    pos, cell, sp, bins = bench_glass(n, triclinic=name.startswith("(c)"))
+    pos, sp = shuffled_with_pads(pos, sp, 7, 17 if n == 272 else 200)
+    if name.startswith("(b)"):
+        return pos, cell, sp, 4, 0.0001, int(2.0 // 0.0001), False
+    return pos, cell, sp, 4, 0.01, bins, name.startswith(("(a)", "(d)"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", UNBLOCKED_CASES)
+def test_rdf_unblocked_kernel_matches_plain_at_bench_size(cuda, name):
+    """Kernel #2 at the shapes of its callers, atoms in a random order with
+    pads among them: equal to the plain version on ten repeated calls into
+    memory the allocator last gave to a tensor of -1s (the kernel writes
+    every output entry); ``launch_geometry`` is the launch's: the queue's
+    items, 512 threads, the folded histogram and key table in shared
+    memory (the key table alone in MODE_GLOBAL), at most one wave."""
+    pos, cell, sp, s, dr, bins, ortho = unblocked_case(name)
+    p, c, t = on(cuda, pos, cell, sp)
+    ref = rdf_kernel.rdf_counts_plain(p, c, t, dr, s, bins, ortho=ortho)
+    assert float(ref.sum()) > 0
+    for _ in range(10):
+        junk = torch.full((s, s, bins), -1.0, device=cuda)
+        del junk
+        assert_same([rdf_kernel.rdf_counts(p, c, t, dr, s, bins,
+                                           ortho=ortho)], [ref])
+    mode = rdf_kernel.smem_mode(s, bins)
+    assert (mode == rdf_kernel.MODE_GLOBAL) == name.startswith("(b)")
+    geo = rdf_kernel.launch_geometry(mode, len(sp), s, bins, ortho)
+    nt = -(-len(sp) // 256)
+    assert geo["items"] == nt * (nt + 1)
+    assert geo["threads"] == 512 and geo["registers"] > 0
+    hist = 0 if mode == rdf_kernel.MODE_GLOBAL else rdf_kernel.fold_ints(
+        s, bins)
+    assert geo["smem_bytes"] == 4 * (hist + s * s)
+    assert geo["blocks"] == min(geo["items"],
+                                geo["blocks_per_sm"] * geo["sms"])
+    assert geo["blocks_per_sm"] >= 1 and geo["waves"] <= 1
+
+
+@pytest.mark.cuda
+def test_rdf_blocked_wrapper_past_smem_takes_kernel_2(cuda):
+    """Kernel #1's wrapper with bins * 4 > SMEM_LIMIT launches kernel #2's
+    MODE_GLOBAL, equal to the plain version."""
+    pos, cell, sp = case(2000, 3, 4, 36.0, pad_from=1990)
+    perm, sp_l = rdf_kernel.species_block_layout(sp, 256, 256)
+    pos_l = rdf_kernel.apply_atom_layout(pos, perm)
+    bins = 60000  # 240,000 B of bins, dr 0.0003: 18 A
+    assert bins * 4 > rdf_kernel.SMEM_LIMIT
+    p, c, t = on(cuda, pos_l, cell, sp_l)
+    before = rdf_kernel.LAUNCHES["rdf_counts_blocked"]
+    got = rdf_kernel.rdf_counts_blocked(p, c, t, 0.0003, 3, bins, ortho=True)
+    assert rdf_kernel.LAUNCHES["rdf_counts_blocked"] == before + 1
+    ref = rdf_kernel.rdf_counts_plain(p, c, t, 0.0003, 3, bins, ortho=True)
+    assert float(ref.sum()) > 0
+    assert_same([got], [ref])
+
+
+@pytest.mark.cuda
+def test_rdf_queues_left_zero_on_two_streams(cuda):
+    """Kernels #1 and #2 launched on two streams: every queue and kernel
+    #2's device histograms are zero again once the launches end."""
+    pos, cell, sp = case(3000, 4, 6, 36.0, pad_from=2990)
+    p, c, t = on(cuda, pos, cell, sp)
+    ref = rdf_kernel.rdf_counts_plain(p, c, t, 0.01, 4, 1800)
+    refg = rdf_kernel.rdf_counts_plain(p, c, t, 0.001, 4, 9000)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            for _ in range(3):
+                outs.append((rdf_kernel.rdf_counts(p, c, t, 0.01, 4, 1800),
+                             ref))
+                outs.append((rdf_kernel.rdf_counts(p, c, t, 0.001, 4, 9000),
+                             refg))
+                outs.append((rdf_kernel.rdf_counts_blocked(
+                    p, c, t, 0.01, 4, 1800), ref))
+    torch.cuda.synchronize()
+    for got, r in outs:
+        assert_same([got], [r])
+    for st in streams:
+        mine = [q for k, q in rdf_kernel._QUEUES.items()
+                if k[1] == st.cuda_stream]
+        assert len(mine) == 1
+        assert int(mine[0].abs().sum()) == 0
+        hists = [b for k, b in rdf_kernel._HISTS.items()
+                 if k[1] == st.cuda_stream]
+        assert hists and all(int(b.abs().sum()) == 0 for b in hists)
+
+
 # bench.py's cutoffs on bench_glass's species (Zn, N, C, H)
 BENCH_CUT = np.zeros((4, 4), np.float32)
 for _a, _b, _c in ((0, 1, 2.0), (2, 2, 1.75), (2, 1, 1.73), (2, 3, 1.3)):
@@ -374,6 +490,10 @@ def test_wrappers_count_launches_and_check_inputs(cuda):
         rdf_kernel.rdf_counts(p.double(), c, s, 0.05, 2, 100)
     with pytest.raises(ValueError):
         rdf_kernel.rdf_counts(p, c, s.long(), 0.05, 2, 100)
+    for fn in (rdf_kernel.rdf_counts, rdf_kernel.rdf_counts_blocked):
+        with pytest.raises(ValueError):
+            fn(p, c, s, 2.0 ** -51, 2, 100)
+    assert rdf_kernel.LAUNCHES["rdf_counts"] == before + 1
 
     centers, cand, starts, qb, c, ct, chunk, w = slab_case(cuda, "bench")
     args = [centers, cand, starts, qb, c, ct, 8, chunk, w]
