@@ -80,6 +80,11 @@ _SIGNATURES = {
     "warmup_copy_launch": (_P, _P, _I, _P),
 }
 
+class KernelError(RuntimeError):
+    """A kernel library that does not build or load, or a launch that
+    fails."""
+
+
 _lock = threading.RLock()
 _lib = None
 _error = None  # the exception of a failed library(), raised again
@@ -94,7 +99,7 @@ def _nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (PATH, $CUDA_HOME/bin); the CUDA kernels of "
         "amof_tpu_torch build from csrc/ at first use"
     )
@@ -154,7 +159,7 @@ def _build() -> pathlib.Path:
     for obj in objs:
         obj.unlink(missing_ok=True)
     if failed:
-        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        raise KernelError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)  # atomic: no process loads a half-written file
     return out
 
@@ -186,9 +191,13 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             try:
                 _lib = _load(build())
-            except Exception as exc:
+            except KernelError as exc:
                 _error = exc
                 raise
+            except Exception as exc:
+                _error = KernelError(f"loading the kernel library failed: "
+                                     f"{exc}")
+                raise _error from exc
         return _lib
 
 
@@ -198,7 +207,7 @@ def check(err: int, what: str) -> None:
         fn = library().amof_cuda_error_string
         fn.restype = ctypes.c_char_p
         fn.argtypes = [ctypes.c_int]
-        raise RuntimeError(
+        raise KernelError(
             f"{what}: CUDA launch failed (error {err}: "
             f"{fn(err).decode()})"
         )

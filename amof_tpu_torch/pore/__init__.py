@@ -1,5 +1,6 @@
-"""Pore analysis: ``Pore`` over a trajectory and the batched ``-sa -vol``
-step (``BatchedPore``, column path)."""
+"""Pore analysis: ``Pore`` over a trajectory, the batched ``-sa -vol``
+step (``BatchedPore``) and the per-frame Zeo++-style analysis
+(``zeopp.analyze_frame`` / ``zeopp.network``)."""
 
 from amof_tpu_torch.pore.batch import BatchedPore
 from amof_tpu_torch.pore.core import Pore

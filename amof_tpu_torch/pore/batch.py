@@ -1,22 +1,32 @@
 """
 Batched pore analysis: Zeo++'s ``-sa -vol`` over every frame of a
-trajectory on one device, on the sorted-xy-column path.
+trajectory on one device.
 
-Counterpart of ``amof_tpu/pore/batch.py`` ``BatchedPore`` where its
-column plan applies (the production path at the bench's 10240 atoms).
-Per frame: probe/channel void masks and MC point fits (kernel #5), the
-channel/pocket classification through two flood-fill fixpoints (kernel
-#7), ``-vol`` from the MC points (or voxel counts), the candidate
-prefilter, the surface blocker pass (kernel #6), the point classification
-and the ASA/NASA sums. Frames run in groups of ``frames_per_call``; each
-group moves one stacked [5, frames] array to the host.
+Counterpart of ``amof_tpu/pore/batch.py`` ``BatchedPore``. Two plans:
 
-Grid dims, windows and sample counts are static per trajectory (computed
-over all frames, so NPT cells work); a window miss is flagged exactly per
-frame, and in ``mc`` mode those frames rerun with 2x, then 4x windows.
-Frames that ``amof_tpu`` would hand to its per-frame path
-(``zeopp.analyze_frame``: grid mode, or a miss past 4x) raise instead:
-that path is not ported yet. So do inputs off the column plan.
+  * the sorted-xy-column plan (the production path at the bench's 10240
+    atoms), where the cell holds >= 4x4 reach-wide mask columns and >= 3x3
+    surface columns and the caller gave neither ``grid=`` nor
+    ``window=None``: probe/channel void masks and MC point fits (kernel
+    #5), the channel/pocket classification through two flood-fill
+    fixpoints (kernel #7), ``-vol`` from the MC points (or voxel counts),
+    the candidate prefilter, the surface blocker pass (kernel #6), the
+    point classification and the ASA/NASA sums;
+  * the distance-field plan otherwise: the clamped field on a two-level
+    (x slab, y window) or one-level sorted window, or the full field
+    (``window=None``), its classification (kernel #7), ``-vol`` from the
+    voxels or from MC points tested on a sorted window, and per-atom
+    surface sampling (sorted window or full).
+
+Frames run in groups of ``frames_per_call``; each group moves one stacked
+[5, frames] array to the host. Grid dims, windows and sample counts are
+static per trajectory (computed over all frames, so NPT cells work); a
+window miss is flagged exactly per frame. In ``mc`` mode those frames
+rerun with 2x, then 4x windows; past that, and in ``grid`` mode, they are
+recomputed by ``zeopp.analyze_frame`` with no window. With
+``winding="exact"`` each frame's wrap-edge label pairs come to the host
+and ``winding.face_test_is_exact`` certifies the face test; a frame with
+a composite channel the test missed is recomputed the same way.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ from amof_tpu_torch.core.frames import as_frame_batch
 from amof_tpu_torch.data import elements
 from amof_tpu_torch.ops.pair_engine import matvec3
 from amof_tpu_torch.parallel.pipeline import resolve_device
-from amof_tpu_torch.pore import grid_kernel, surface_kernel
+from amof_tpu_torch.pore import grid_kernel, surface_kernel, winding, zeopp
 from amof_tpu_torch.pore.zeopp import (
     A2_PER_A3_TO_M2_PER_CM3,
     A2_TO_M2,
@@ -52,7 +62,8 @@ _FOUR_PI = float(np.float32(4.0 * np.pi))
 
 
 class _Static(NamedTuple):
-    """What every frame of one trajectory shares (device tensors)."""
+    """What every frame of one trajectory shares on the column plan
+    (device tensors)."""
     radii: torch.Tensor           # f32 [N]
     dirs: torch.Tensor            # f32 [K, 3]
     col_plan: dict
@@ -62,6 +73,20 @@ class _Static(NamedTuple):
     pts_tiled: Optional[torch.Tensor]  # f32 [T, P, 3] (mc) or None
     weights: Optional[torch.Tensor]    # f32 [T, P] (mc) or None
     n_real: float
+
+
+class _FieldStatic(NamedTuple):
+    """What every frame shares on the distance-field plan."""
+    radii: torch.Tensor           # f32 [N]
+    dirs: torch.Tensor            # f32 [K, 3]
+    grid: tuple
+    probe: float
+    chan: float
+    dist_window: Optional[int]
+    dxa: float
+    surf_window: Optional[int]
+    mc: Optional[tuple]   # (pts f32 [M, 3] x-sorted, lo f32 [C], hi, window)
+    dist2: Optional[tuple]  # (tvx, tvy, nbx, k_slabs, window2, dya)
 
 
 def _volume(st: _Static, volume, m_probe, accessible, pocket, fit_pts):
@@ -98,16 +123,22 @@ def _surface_sums(st: _Static, valid, i_pt, i_nu, gis, rs, accessible,
     return (torch.sum(areas * acc_c) / k, torch.sum(areas * nacc_c) / k)
 
 
-def _frame(st: _Static, pos, cell, inv, volume):
-    """f64 [5] = (ASA, NASA, AV, NAV, missed) of one frame."""
-    cp, sp = st.col_plan, st.surf_plan
+def _frac(pos, inv):
     frac = matvec3(pos, inv)
-    frac = frac - torch.floor(frac)
+    return frac - torch.floor(frac)
+
+
+def _frame(st: _Static, pos, cell, inv, volume, emit_faces: bool):
+    """(f64 [5] = (ASA, NASA, AV, NAV, missed), face label pairs or None)
+    of one frame on the column plan."""
+    cp, sp = st.col_plan, st.surf_plan
+    frac = _frac(pos, inv)
     m_probe, m_chan, fit_pts, miss_d = surface_kernel.void_masks_points(
         frac, cell, st.radii, cp["grid"], probe=st.probe, chan=st.chan,
         nbx=cp["nbx"], nby=cp["nby"], window=cp["window"],
         pts_tiled=st.pts_tiled)
-    _, accessible, pocket = grid_kernel.void_classification_mask(m_chan)
+    cls = grid_kernel.void_classification_mask(m_chan, emit_faces)
+    _, accessible, pocket = cls[:3]
     av, nav = _volume(st, volume, m_probe, accessible, pocket, fit_pts)
     # exact prefilter: points can only count on void voxels, which are
     # exactly m_chan; slots without a candidate atom skip the blockers
@@ -117,7 +148,77 @@ def _frame(st: _Static, pos, cell, inv, volume):
         col_cap=sp["col_cap"], cand_mask=m_chan, inv_cell=inv)
     asa, nasa = _surface_sums(st, valid, i_pt, i_nu, gis, rs, accessible,
                               pocket)
-    return torch.stack([asa, nasa, av, nav, (miss_d | miss_s).to(_F64)])
+    out = torch.stack([asa, nasa, av, nav, (miss_d | miss_s).to(_F64)])
+    return out, (cls[3] if emit_faces else None)
+
+
+def _frame_field(st: _FieldStatic, pos, cell, inv, volume,
+                 emit_faces: bool):
+    """(f64 [5] = (ASA, NASA, AV, NAV, missed), face label pairs or None)
+    of one frame on the distance-field plan."""
+    grid, probe, chan = st.grid, st.probe, st.chan
+    dmax = max(probe, chan) + 1e-3
+    frac = _frac(pos, inv)
+    no_miss = torch.zeros((), dtype=torch.bool, device=pos.device)
+    if st.dist2 is not None:
+        tvx, tvy, nbx, k_slabs, window2, dya = st.dist2
+        dist, miss_d = grid_kernel.distance_grid_windowed2(
+            frac, cell, st.radii, grid, dmax=dmax, dxa=st.dxa, dya=dya,
+            tvx=tvx, tvy=tvy, nbx=nbx, k_slabs=k_slabs, window=window2)
+    elif st.dist_window is not None:
+        dist, miss_d = grid_kernel.distance_grid_windowed(
+            frac, cell, st.radii, grid, dmax=dmax, dxa=st.dxa,
+            chunk=2048 if st.dist_window <= 2048 else 1024,
+            window=st.dist_window)
+    else:
+        dist, miss_d = grid_kernel.distance_grid(frac, cell, st.radii,
+                                                 grid), no_miss
+    cls = grid_kernel.void_classification(dist, chan, emit_faces)
+    _, accessible, pocket = cls[:3]
+    if probe != chan:
+        fit = dist >= probe
+        acc_fit, poc_fit = fit & accessible, fit & ~accessible
+    else:
+        acc_fit, poc_fit = accessible, pocket
+
+    vol = volume.to(_F64)
+    if st.mc is not None:
+        # probe fits exactly at the MC points; only the accessible/pocket
+        # split comes from the (possibly coarse) connectivity grid
+        pts, lo, hi, pwin = st.mc
+        d_pts, miss_p = grid_kernel.point_distance_windowed(
+            frac, cell, st.radii, pts, lo, hi, dmax=probe + 1e-3,
+            dxa=st.dxa, chunk=2048, window=pwin)
+        miss_d = miss_d | miss_p
+        fit_pt = d_pts >= probe
+        acc_pt = grid_kernel.grid_lookup(accessible, pts, grid)
+        m_tot = pts.shape[0]
+        av = vol * torch.sum(fit_pt & acc_pt).to(_F64) / m_tot
+        nav = vol * torch.sum(fit_pt & ~acc_pt).to(_F64) / m_tot
+    else:
+        n_vox = grid[0] * grid[1] * grid[2]
+        av = torch.sum(acc_fit).to(_F64) * vol / n_vox
+        nav = torch.sum(poc_fit).to(_F64) * vol / n_vox
+
+    n = st.radii.shape[0]
+    if st.surf_window is not None:
+        a_s, n_s, _, r_s, miss_s = (
+            grid_kernel.surface_point_classification_windowed(
+                frac, cell, st.radii, probe, st.dirs, accessible, pocket,
+                grid, window=st.surf_window))
+        # counts of the sorted atoms, then the chunk's padding rows
+        a_s, n_s = a_s[:n], n_s[:n]
+    else:
+        a_s, n_s = grid_kernel.surface_point_classification(
+            frac, cell, st.radii, probe, st.dirs, accessible, pocket, grid)
+        r_s, miss_s = st.radii, no_miss
+    t = r_s + probe
+    areas = (_FOUR_PI * (t * t)).to(_F64)
+    k = st.dirs.shape[0]
+    asa = torch.sum(areas * a_s) / k
+    nasa = torch.sum(areas * n_s) / k
+    out = torch.stack([asa, nasa, av, nav, (miss_d | miss_s).to(_F64)])
+    return out, (cls[3] if emit_faces else None)
 
 
 class BatchedPore:
@@ -160,53 +261,30 @@ class BatchedPore:
         # widened-window retry factor for frames whose sorted-run
         # capacities missed (run() escalates 1 -> 2 -> 4)
         self.window_scale = float(window_scale)
+        # "face": the device same-label face test (exact for every
+        # single-wrap channel); "exact": the face test certified per frame
+        # by the host displacement-vector analysis, flagged frames
+        # recomputed per frame
         if winding not in ("face", "exact"):
             raise ValueError(
                 f"winding must be 'face' or 'exact', got {winding!r}"
             )
-        if winding == "exact":
-            raise NotImplementedError(
-                "winding='exact' needs the host winding analysis "
-                "(pore/winding.py) and the per-frame path, which are not "
-                "ported yet; use winding='face'"
-            )
         self.winding = winding
 
-    def _plans(self, cells, radii, n_at):
-        """(grid, col_plan, surf_plan); raises NotImplementedError off
-        the column plan."""
-        if self.grid is not None:
-            raise NotImplementedError(
-                "an explicit grid= takes the non-column pore path, which "
-                "is not ported yet (the column plan chooses its own dims)"
-            )
-        if self.window is None:
-            raise NotImplementedError(
-                "window=None takes the unwindowed pore path, which is not "
-                "ported yet"
-            )
-        res = (self.conn_resolution
-               if (self.vol_method == "mc" and self.conn_resolution)
-               else self.resolution)
-        grid = _grid_dims(
-            np.linalg.norm(cells, axis=2).max(axis=0)[:, None] * np.eye(3),
-            res,
-        )
-        probe, chan = self.probe_radius, self.chan_radius
-        dmax = max(probe, chan) + 1e-3
+    def _column_plans(self, cells, radii, n_at, grid):
+        """(col_plan, surf_plan), or None off the column plan (explicit
+        grid=, window=None, or a cell too small for the columns)."""
+        if self.grid is not None or self.window is None:
+            return None
+        dmax = max(self.probe_radius, self.chan_radius) + 1e-3
         col_plan = grid_kernel.xycol_plan(
             cells, float(radii.max()), dmax, grid, n_at)
-        surf_plan = None
-        if col_plan is not None:
-            surf_plan = grid_kernel.surface_plan(
-                cells, float(radii.max()), probe, n_at)
-        if col_plan is None or surf_plan is None:
-            raise NotImplementedError(
-                "the cell is too small for the column plan (>= 4x4 "
-                "reach-wide mask columns and >= 3x3 surface columns, with "
-                "three windows below the atom count); the non-column pore "
-                "path is not ported yet"
-            )
+        if col_plan is None:
+            return None
+        surf_plan = grid_kernel.surface_plan(
+            cells, float(radii.max()), self.probe_radius, n_at)
+        if surf_plan is None:
+            return None
         if self.window_scale != 1.0:
             col_plan["window"] = int(
                 -(-col_plan["window"] * self.window_scale // 8) * 8)
@@ -216,12 +294,56 @@ class BatchedPore:
             surf_plan["col_cap"] = int(
                 -(-surf_plan["col_cap"] * self.window_scale
                   // surf_plan["chunk"]) * surf_plan["chunk"])
-        return col_plan["grid"], col_plan, surf_plan
+        return col_plan, surf_plan
+
+    def _field_plan(self, cells, radii, n_at, grid):
+        """Static windows of the distance-field plan, conservative over
+        the frames (the smallest slab widths): (dxa, dist_window,
+        surf_window, dist2, mc sample set or None)."""
+        dmax = max(self.probe_radius, self.chan_radius) + 1e-3
+        dxa, dist_window, surf_window = grid_kernel.window_sizes(
+            cells, float(radii.max()), n_at, grid, dmax, self.probe_radius,
+            self.window, self.window_scale)
+
+        # two-level (x slab, y window) field, engaged on a decisive (2x)
+        # candidate-work advantage over the one-level window
+        dist2 = None
+        if self.window == "auto" and dist_window is not None:
+            w0y = grid_kernel.cell_widths(cells)[1]
+            dya = float(np.ceil((dmax + float(radii.max())) / w0y / 5e-3)
+                        * 5e-3)
+            tvx = next((t for t in (8, 4) if grid[0] % t == 0), None)
+            tvy = next((t for t in (16, 8, 4) if grid[1] % t == 0), None)
+            if tvx and tvy:
+                nbx = max(2, min(64, int(1 / (2 * dxa)) or 2))
+                rx = (tvx - 1) / grid[0] + 2 * dxa
+                ry = (tvy - 1) / grid[1] + 2 * dya
+                k_slabs = int(np.ceil(rx * nbx)) + 1
+                if ry < 0.99 and k_slabs <= nbx:
+                    window2 = grid_kernel.ceil128(1.3 * n_at * ry / nbx + 64)
+                    if k_slabs * window2 * 2 < dist_window:
+                        dist2 = (tvx, tvy, nbx, k_slabs, window2, dya)
+
+        mc = None
+        if self.vol_method == "mc":
+            # one seeded sample set, sorted by x, serves every frame
+            chunk_pts = 2048
+            m = -(-self.num_samples // chunk_pts) * chunk_pts
+            rng = np.random.default_rng(20240817)
+            pts = rng.random((m, 3)).astype(np.float32)
+            pts = pts[np.argsort(pts[:, 0], kind="stable")]
+            lo = np.ascontiguousarray(pts[::chunk_pts, 0])
+            hi = np.ascontiguousarray(pts[chunk_pts - 1::chunk_pts, 0])
+            pwin = grid_kernel.ceil128(
+                1.3 * n_at * (float((hi - lo).max()) + 2 * dxa) + 64)
+            mc = (pts, lo, hi, pwin)
+        return dxa, dist_window, surf_window, dist2, mc
 
     def prepare(self, batch, device="cuda"):
         """Resolve static shapes and upload; returns (step_fn, args,
         meta). ``step_fn(*args)`` returns (asa, nasa, av, nav, missed),
-        numpy arrays over frames."""
+        numpy arrays over frames, and with ``winding="exact"`` the face
+        label pairs, i32 [frames, 2, n_face]."""
         dev = resolve_device(device)
         handle = warmup(device=dev)  # build + context overlap the plans
         batch = as_frame_batch(batch)
@@ -232,27 +354,62 @@ class BatchedPore:
         volumes = np.abs(np.linalg.det(cells)).astype(np.float32)
         mass_amu = float(np.sum(elements.mass_of(np.asarray(batch.species))))
 
-        grid, col_plan, surf_plan = self._plans(cells, radii, n_at)
+        # static grid dims: conservative per-axis max over NPT frames
+        if self.grid is None:
+            res = (self.conn_resolution
+                   if (self.vol_method == "mc" and self.conn_resolution)
+                   else self.resolution)
+            grid = _grid_dims(
+                np.linalg.norm(cells, axis=2).max(axis=0)[:, None]
+                * np.eye(3), res)
+        else:
+            grid = tuple(int(g) for g in self.grid)
         # directions per atom follow Zeo++'s allocation (num_samples over
         # all atom spheres), with a floor of 8
         k = max(8, self.num_samples // max(1, n_at))
         dirs = grid_kernel.fibonacci_sphere(k)
-        pts_tiled = weights = None
-        if self.vol_method == "mc":
-            rng = np.random.default_rng(20240817)
-            pts = rng.random((self.num_samples, 3)).astype(np.float32)
-            pts_np, w_np = grid_kernel.assign_points_to_xytiles(
-                pts, col_plan)
-            pts_tiled = torch.from_numpy(pts_np).to(dev)
-            weights = torch.from_numpy(w_np).to(dev)
-        st = _Static(
-            radii=torch.from_numpy(radii).to(dev),
-            dirs=torch.from_numpy(dirs).to(dev),
-            col_plan=col_plan, surf_plan=surf_plan,
-            probe=self.probe_radius, chan=self.chan_radius,
-            pts_tiled=pts_tiled, weights=weights,
-            n_real=float(self.num_samples),
-        )
+        meta = {"mesh": None, "device": str(dev), "k": k,
+                "mass_amu": mass_amu, "volumes": volumes,
+                "dist_window": None, "surf_window": None, "dist2": None,
+                "col_plan": None, "surf_plan": None}
+        radii_t = torch.from_numpy(radii).to(dev)
+        dirs_t = torch.from_numpy(dirs).to(dev)
+
+        plans = self._column_plans(cells, radii, n_at, grid)
+        if plans is not None:
+            col_plan, surf_plan = plans
+            grid = col_plan["grid"]
+            pts_tiled = weights = None
+            if self.vol_method == "mc":
+                rng = np.random.default_rng(20240817)
+                pts = rng.random((self.num_samples, 3)).astype(np.float32)
+                pts_np, w_np = grid_kernel.assign_points_to_xytiles(
+                    pts, col_plan)
+                pts_tiled = torch.from_numpy(pts_np).to(dev)
+                weights = torch.from_numpy(w_np).to(dev)
+            st = _Static(
+                radii=radii_t, dirs=dirs_t, col_plan=col_plan,
+                surf_plan=surf_plan, probe=self.probe_radius,
+                chan=self.chan_radius, pts_tiled=pts_tiled,
+                weights=weights, n_real=float(self.num_samples))
+            frame_fn = _frame
+            meta.update(col_plan=col_plan, surf_plan=surf_plan)
+        else:
+            dxa, dist_window, surf_window, dist2, mc = self._field_plan(
+                cells, radii, n_at, grid)
+            if mc is not None:
+                pts, lo, hi, pwin = mc
+                mc = (torch.from_numpy(pts).to(dev),
+                      torch.from_numpy(lo).to(dev),
+                      torch.from_numpy(hi).to(dev), pwin)
+            st = _FieldStatic(
+                radii=radii_t, dirs=dirs_t, grid=grid,
+                probe=self.probe_radius, chan=self.chan_radius,
+                dist_window=dist_window, dxa=dxa, surf_window=surf_window,
+                mc=mc, dist2=dist2)
+            frame_fn = _frame_field
+            meta.update(dist_window=dist_window, surf_window=surf_window,
+                        dist2=dist2)
 
         # frames per group: the largest divisor of the frame count up to
         # frames_per_call
@@ -260,6 +417,7 @@ class BatchedPore:
         fpc = next(d for d in range(min(max(self.frames_per_call, 1),
                                         n_frames), 0, -1)
                    if n_frames % d == 0)
+        emit_faces = self.winding == "exact"
 
         cells_t = torch.from_numpy(cells.astype(np.float32))
         args = (
@@ -270,32 +428,44 @@ class BatchedPore:
         )
 
         def step_fn(positions, cells_f, inv_f, volumes_f):
-            groups = []
+            groups, faces = [], []
             for g0 in range(0, n_frames, fpc):
-                out = torch.stack([
-                    _frame(st, positions[f], cells_f[f], inv_f[f],
-                           volumes_f[f])
-                    for f in range(g0, g0 + fpc)
-                ], dim=1)  # [5, fpc]
-                groups.append(out.cpu().numpy())
+                outs = [frame_fn(st, positions[f], cells_f[f], inv_f[f],
+                                 volumes_f[f], emit_faces)
+                        for f in range(g0, g0 + fpc)]
+                groups.append(torch.stack([o[0] for o in outs],
+                                          dim=1).cpu().numpy())  # [5, fpc]
+                if emit_faces:
+                    faces.append(torch.stack([o[1] for o in outs]).cpu())
             stacked = np.concatenate(groups, axis=1)
-            return tuple(stacked[j] for j in range(4)) + (stacked[4] != 0,)
+            out = tuple(stacked[j] for j in range(4)) + (stacked[4] != 0,)
+            if emit_faces:
+                out += (torch.cat(faces).numpy(),)
+            return out
 
-        meta = {
-            "grid": grid, "mesh": None, "device": str(dev),
-            "frames_per_call": fpc, "col_plan": col_plan,
-            "surf_plan": surf_plan, "k": k, "mass_amu": mass_amu,
-            "volumes": volumes, "dist_window": None, "surf_window": None,
-            "dist2": None,
-        }
+        meta.update(grid=grid, frames_per_call=fpc)
         return after_warmup(handle, step_fn), args, meta
+
+    def _per_frame(self, batch, i: int, meta, device):
+        """``zeopp.analyze_frame`` -sa/-vol of frame ``i`` with no window:
+        grid mode on the step's grid, mc mode on the fine grid (it
+        converges to the MC value)."""
+        out = zeopp.analyze_frame(
+            batch.frame(int(i)), sa=True, vol=True,
+            probe_radius=self.probe_radius, chan_radius=self.chan_radius,
+            num_samples=self.num_samples, radii=self.radii,
+            resolution=self.resolution,
+            grid=meta["grid"] if self.vol_method == "grid" else None,
+            window=None, device=device)
+        return out["ASA_A^2"], out["NASA_A^2"], out["AV_A^3"], out["NAV_A^3"]
 
     def run(self, batch, device="cuda"):
         """Returns (records, meta): one dict of Zeo++ -sa/-vol output
         fields per frame."""
         batch = as_frame_batch(batch)
         step_fn, args, meta = self.prepare(batch, device)
-        asa, nasa, av, nav, missed = (np.array(v) for v in step_fn(*args))
+        out = step_fn(*args)
+        asa, nasa, av, nav, missed = (np.array(v) for v in out[:5])
         if missed.any():
             idx = np.nonzero(missed)[0]
             if self.vol_method == "mc" and self.window_scale < 4:
@@ -329,13 +499,34 @@ class BatchedPore:
                     av[i] = sub_records[j]["AV_A^3"]
                     nav[i] = sub_records[j]["NAV_A^3"]
             else:
-                raise NotImplementedError(
-                    f"frames {idx.tolist()} overflowed their sorted-run "
-                    f"capacity ({self.vol_method} mode, window scale "
-                    f"{self.window_scale:g}); amof_tpu recomputes such "
-                    f"frames through the per-frame path "
-                    f"(zeopp.analyze_frame), which is not ported yet"
+                # window misses are exact flags: recompute those frames
+                # with no window
+                logger.info(
+                    "sorted-window capacity missed on %d/%d frames; "
+                    "recomputing them exactly", len(idx), len(missed),
                 )
+                for i in idx:
+                    asa[i], nasa[i], av[i], nav[i] = self._per_frame(
+                        batch, i, meta, device)
+
+        if self.winding == "exact":
+            # frames the miss handling recomputed already went through an
+            # exact path (per frame, or a retry with its own certificate)
+            axis_ids = grid_kernel.face_axis_ids(meta["grid"])
+            flagged = [
+                i for i in range(len(missed))
+                if not missed[i]
+                and not winding.face_test_is_exact(out[5][i], axis_ids)
+            ]
+            if flagged:
+                logger.info(
+                    "face test missed a composite channel on %d/%d "
+                    "frames; recomputing them with the exact winding "
+                    "analysis", len(flagged), len(missed),
+                )
+            for i in flagged:
+                asa[i], nasa[i], av[i], nav[i] = self._per_frame(
+                    batch, i, meta, device)
 
         volume = meta["volumes"].astype(np.float64)
         mass_g = meta["mass_amu"] * AMU_TO_G

@@ -1,9 +1,9 @@
 """
-Pore geometry on the sorted-xy-column path: host planning, the sorted
-atom layouts, the plain PyTorch versions of the void-mask and surface
-kernels, the connectivity chain and the surface classification.
+Pore geometry: host planning, the sorted atom layouts, the plain PyTorch
+versions of the void-mask and surface kernels, the connectivity chain,
+the distance fields and the per-frame path's sampling.
 
-Counterpart of the column path of ``amof_tpu/pore/grid_kernel.py``:
+Counterpart of ``amof_tpu/pore/grid_kernel.py``:
 
   * numpy planning, copied: ``fibonacci_sphere``, ``xycol_plan``,
     ``surface_plan``, ``assign_points_to_xytiles``;
@@ -22,7 +22,16 @@ Counterpart of the column path of ``amof_tpu/pore/grid_kernel.py``:
     labelling) for CUDA tensors, roll-based masked max sweeps to a
     fixpoint for CPU tensors;
   * ``surface_candidate_mask``, ``classify_surface_points``,
-    ``grid_lookup``.
+    ``grid_lookup``;
+  * for the per-frame path (``zeopp``) and ``BatchedPore``'s
+    distance-field plans, in torch on the caller's device: the distance
+    fields (``distance_grid``, the sorted-window ``distance_grid_windowed``
+    and two-level ``distance_grid_windowed2``, ``point_distance_windowed``
+    at MC points), ``void_classification``, ``face_label_pairs``,
+    ``percolating_flags``, ``dilate``, the per-atom surface sampling
+    (``surface_point_classification`` and its windowed form), the
+    covering-sphere PSD by FFT (``covering_volume_counts``) and the ray
+    march (``ray_chord_lengths``).
 
 Every threshold test compares squared distances in the reference's
 expression order; divisions by a count use a device tensor as divisor
@@ -37,7 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from amof_tpu_torch.ops.pair_engine import matvec3
+from amof_tpu_torch.ops.pair_engine import matvec3, sqrt_rn, squared_norm
 
 # launches of the flood-fill kernel (CPU calls do not count)
 LAUNCHES = {"flood_fill": 0}
@@ -82,7 +91,9 @@ def fibonacci_sphere(n: int) -> np.ndarray:
     ).astype(np.float32)
 
 
-def _widths(cells) -> list:
+def cell_widths(cells) -> list:
+    """The smallest width of the cells (one [3, 3] or [F, 3, 3]) across
+    each axis's lattice planes, |a . (b x c)| / |b x c| for x."""
     cells = np.asarray(cells, np.float64)
     if cells.ndim == 2:
         cells = cells[None]
@@ -95,6 +106,38 @@ def _widths(cells) -> list:
     return widths
 
 
+def ceil128(x: float) -> int:
+    """``x`` rounded up to a multiple of 128 (a sorted window's width)."""
+    return int(-(-x // 128) * 128)
+
+
+def window_sizes(cells, radii_max: float, n_atoms: int, grid, dmax: float,
+                 probe: float, window="auto", scale: float = 1.0):
+    """Sorted-window sizes of the distance field and of the surface
+    classification, conservative over ``cells`` (the smallest x width):
+    (dxa, dist_window, surf_window). ``dxa`` is the field's fractional-x
+    reach, rounded up to 5e-3 so that it stays the same across NPT
+    frames. ``window`` "auto" sizes the field's window from the density,
+    an int forces it (times ``scale``), None gives neither window; a
+    window that would reach every atom is None."""
+    w0 = cell_widths(cells)[0]
+    dxa = float(np.ceil((dmax + radii_max) / w0 / 5e-3) * 5e-3)
+    if window is None:
+        return dxa, None, None
+    chunk = 2048  # pessimistic span for the adaptive chunk
+    span = (chunk // (grid[1] * grid[2]) + 2) / grid[0]
+    if window == "auto":
+        dist_window = ceil128((1.3 * n_atoms * (span + 2 * dxa) + 64)
+                              * scale)
+    else:
+        dist_window = int(window * scale)
+    # blockers lie within R_i + R_j + 2 * probe of a centre
+    reach = 2.0 * (radii_max + probe)
+    surf_window = ceil128((1.3 * n_atoms * reach / w0 + 64) * scale)
+    return (dxa, dist_window if dist_window < n_atoms else None,
+            surf_window if 32 + 2 * surf_window < n_atoms else None)
+
+
 def xycol_plan(cells, radii_max, dmax, grid_raw, n_atoms):
     """Static plan for the xy-column mask pass.
 
@@ -105,7 +148,7 @@ def xycol_plan(cells, radii_max, dmax, grid_raw, n_atoms):
     kept for parity with ``amof_tpu``; kernel #5 does not read them: it
     cuts z into slabs of its own height (``VOID_SLAB`` voxels).
     """
-    widths = _widths(cells)
+    widths = cell_widths(cells)
     reach = float(dmax + radii_max)
     nbx = int(widths[0] / reach)
     nby = int(widths[1] / reach)
@@ -167,7 +210,7 @@ def surface_plan(cells, radii_max, probe, n_atoms, chunk: int = 64):
 
     Returns dict(nbx, nby, window, chunk, col_cap) or None when the cell
     is too small for >= 3 coarse columns per axis."""
-    widths = _widths(cells)
+    widths = cell_widths(cells)
     reach = float(2.0 * radii_max + 2.0 * probe)
     nbx = int(widths[0] / reach)
     nby = int(widths[1] / reach)
@@ -944,12 +987,580 @@ def propagate_channel(channel_seed, mask):
     return propagate_fixpoint(seed, True) == 1
 
 
-def void_classification_mask(mask):
+def void_classification_mask(mask, return_faces: bool = False):
     """(mask, accessible, pocket) from a probe-fit mask: open components
     that meet themselves across a periodic face are channels; channel
     status spreads through periodic connectivity; the rest of the mask is
-    pocket."""
+    pocket. With ``return_faces`` also the wrap-edge label pairs of the
+    open labels (``face_label_pairs``), from which the host winding
+    analysis (``pore/winding.py``) certifies the face test."""
     open_labels = label_components(mask, periodic=False)
     seeds = winding_seeds(open_labels, mask)
     accessible = propagate_channel(seeds, mask)
+    if return_faces:
+        return (mask, accessible, mask & ~accessible,
+                face_label_pairs(open_labels))
     return mask, accessible, mask & ~accessible
+
+
+def void_classification(dist, r_probe, return_faces: bool = False):
+    """(mask, accessible, pocket) voxel masks of a distance field for a
+    probe radius."""
+    return void_classification_mask(dist >= r_probe, return_faces)
+
+
+def face_label_pairs(open_labels):
+    """Wrap-edge label pairs of an open component labelling: i32[2,
+    n_face], column j holding (label at the last slice, label at the
+    first slice) of one periodic face position, the three axes in order.
+    With ``face_axis_ids`` this is the whole quotient graph of the
+    periodic void network: every edge between open components crosses a
+    face."""
+    a = [open_labels.select(axis, -1).reshape(-1) for axis in range(3)]
+    b = [open_labels.select(axis, 0).reshape(-1) for axis in range(3)]
+    return torch.stack([torch.cat(a), torch.cat(b)])
+
+
+def face_axis_ids(grid) -> np.ndarray:
+    """Axis id (0/1/2) of each ``face_label_pairs`` column."""
+    gx, gy, gz = grid
+    return np.repeat(np.arange(3), [gy * gz, gx * gz, gx * gy])
+
+
+def percolating_flags(open_labels, mask):
+    """Per-voxel flag: does this voxel's open component meet itself
+    across a periodic face (an infinite channel)? A scatter-max of the
+    face wins over the labels."""
+    n = open_labels.numel()
+    flag = torch.zeros(n + 1, dtype=torch.uint8, device=mask.device)
+    for axis in range(3):
+        a = open_labels.select(axis, -1).reshape(-1)
+        b = open_labels.select(axis, 0).reshape(-1)
+        wins = (a == b) & (a >= 0)
+        idx = torch.where(wins, a, torch.full_like(a, n)).long()
+        flag.scatter_reduce_(0, idx, wins.to(torch.uint8), "amax")
+    lab = open_labels.reshape(-1).long()
+    lab = torch.where(lab >= 0, lab, lab + (n + 1))  # -1 reads slot n
+    return flag[lab].reshape(open_labels.shape).bool() & mask
+
+
+def dilate(mask, steps: int):
+    """Periodic 6-neighbour dilation (octahedral structuring element),
+    ``steps`` times."""
+    out = mask
+    for _ in range(steps):
+        grown = out
+        for axis in range(3):
+            for shift in (1, -1):
+                grown = grown | torch.roll(out, shift, axis)
+        out = grown
+    return out
+
+
+# --------------------------------------------------------------------------
+# Distance fields: the per-frame path and BatchedPore's non-column plans
+# --------------------------------------------------------------------------
+#
+# d(v) = min_i (|v - r_i|_mic - R_i), pair by pair in the reference's
+# expression order: df - floor(df + 0.5), matvec3, sqrt, then - R. A block
+# of voxels (x planes, or tiles, times every z) and its candidate atoms
+# share the wrapped fractional offsets of each axis ([B, n_axis, W]), so
+# each Cartesian component is formed as matvec3 forms it, (x term + y
+# term) + z term, without a [B, C, W, 3] offset tensor; on a diagonal
+# cell a component depends on one axis only and the squared norm is
+# (x^2 + y^2) + z^2 of per-axis tables. The minimum over atoms is exact
+# in any grouping, so blocks are sized by memory: FIELD_BYTES for each
+# f32 temporary.
+
+FIELD_BYTES = 256 << 20
+
+
+def _sqrt(x):
+    """Correctly rounded float32 sqrt, in place where it can be: CUDA's
+    sqrtf is IEEE; the CPU takes ``sqrt_rn``."""
+    return x.sqrt_() if x.is_cuda else sqrt_rn(x)
+
+
+def _axis_centres(g: int, dev):
+    return _div(torch.arange(g, dtype=_F32, device=dev) + 0.5, g)
+
+
+def _wrapped(v, a):
+    """v[..., n, None] - a[..., None, W], wrapped: df - floor(df + 0.5)."""
+    df = v[..., :, None] - a[..., None, :]
+    return df - torch.floor(df + 0.5)
+
+
+def _is_diagonal(cell) -> bool:
+    c = cell.detach().cpu()
+    return bool(torch.count_nonzero(c - torch.diag(torch.diagonal(c))) == 0)
+
+
+def _block_min(wx, wy, wz, r, cell, diag: bool):
+    """f32 [B, nx, ny, nz]: min over W of sqrt(|matvec3(w, cell)|^2) - r
+    for wrapped offsets wx [B, nx, W], wy [B, ny, W], wz [B, nz, W] and
+    radii r [B, W] (-inf drops a candidate)."""
+    if diag:
+        x2, y2, z2 = (_square(w * cell[k, k])
+                      for k, w in enumerate((wx, wy, wz)))
+        xy = x2[:, :, None, :] + y2[:, None, :, :]
+        s = xy[:, :, :, None, :] + z2[:, None, None, :, :]
+    else:
+        s = None
+        for k in range(3):
+            xy = (wx * cell[0, k])[:, :, None, :] \
+                + (wy * cell[1, k])[:, None, :, :]
+            c = xy[:, :, :, None, :] + (wz * cell[2, k])[:, None, None, :, :]
+            c.mul_(c)
+            s = c if s is None else s.add_(c)
+    s = _sqrt(s)
+    s.sub_(r[:, None, None, None, :])
+    return s.amin(dim=-1)
+
+
+def _rows_per_block(row_bytes: int, n_rows: int) -> int:
+    return max(1, min(n_rows, FIELD_BYTES // max(row_bytes, 1)))
+
+
+def distance_grid(frac_atoms, cell, radii, grid):
+    """Distance-to-nearest-atom-surface field on the fractional voxel grid
+    (voxel centres (i + 0.5) / G), f32 [Gx, Gy, Gz] in A, over every atom
+    (rows with radius -inf are skipped)."""
+    dev = frac_atoms.device
+    gx, gy, gz = grid
+    n = frac_atoms.shape[0]
+    diag = _is_diagonal(cell)
+    w = [_wrapped(_axis_centres(g, dev), frac_atoms[:, k])
+         for k, g in enumerate(grid)]  # [G_k, N] each
+    out = torch.empty(grid, dtype=_F32, device=dev)
+    by = _rows_per_block(gz * n * 4, gy)
+    bx = _rows_per_block(gy * gz * n * 4, gx) if by == gy else 1
+    for x0 in range(0, gx, bx):
+        for y0 in range(0, gy, by):
+            out[x0:x0 + bx, y0:y0 + by] = _block_min(
+                w[0][None, x0:x0 + bx], w[1][None, y0:y0 + by], w[2][None],
+                radii[None], cell, diag)[0]
+    return out
+
+
+def _sort_by_x(frac_atoms):
+    """(wrapped fractional x sorted, permutation): a stable sort on
+    x - floor(x)."""
+    return torch.sort(_wrap01(frac_atoms[:, 0]), stable=True)
+
+
+def _circular_counts(xs, lo, hi):
+    """(start, count) in sorted order of the atoms whose wrapped x lies in
+    [lo, hi) taken modulo 1 (an interval may wrap the cell). ``lo`` and
+    ``hi`` (numpy arrays or tensors) are reduced modulo 1 in their own
+    precision, then cast to that of ``xs``."""
+    n = xs.shape[0]
+    lo, hi = (torch.remainder(torch.as_tensor(v, device=xs.device), 1.0)
+              for v in (lo, hi))
+    s = torch.searchsorted(xs, lo.to(xs.dtype))
+    e = torch.searchsorted(xs, hi.to(xs.dtype))
+    return s, torch.where(hi >= lo, e - s, e + (n - s))
+
+
+def distance_grid_windowed(frac_atoms, cell, radii, grid, dmax: float,
+                           dxa: float, chunk: int = 1024,
+                           window: int = 1536):
+    """Clamped distance field, exact wherever the true value is below
+    ``dmax``, and the exact miss flag of ``amof_tpu``'s sorted window:
+    (f32 [Gx, Gy, Gz], missed bool tensor).
+
+    Atoms are sorted by wrapped fractional x. The flag is the
+    reference's: x-major voxel chunks of ``chunk`` linear indices, each
+    with the fractional-x reach [x_lo - dxa, x_hi + dxa] of its planes,
+    count their atoms by binary search; a chunk with more than ``window``
+    misses. The field takes each x plane with the atoms in its own reach
+    (a subset of every such chunk's in-reach atoms, and a superset of the
+    atoms within dmax + R of the plane), so where nothing misses it equals
+    the reference's clamped minimum."""
+    gx, gy, gz = grid
+    n = frac_atoms.shape[0]
+    if window >= n:
+        raise ValueError("window must be smaller than the atom count")
+    dev = frac_atoms.device
+    n_vox = gx * gy * gz
+    n_chunks = -(-n_vox // chunk)
+    c0 = np.arange(n_chunks) * chunk
+    lo = (c0 // (gy * gz) + 0.5) / gx - dxa
+    hi = ((c0 + chunk - 1) // (gy * gz) + 0.5) / gx + dxa
+    if float((hi - lo).max()) >= 1.0:
+        # the reach covers the whole cell: no window exists
+        return (torch.clamp(distance_grid(frac_atoms, cell, radii, grid),
+                            max=dmax),
+                torch.zeros((), dtype=torch.bool, device=dev))
+    xs, order = _sort_by_x(frac_atoms)
+    _, cnt = _circular_counts(xs, lo, hi)
+    missed = torch.any(cnt > window)
+
+    plane = np.arange(gx)
+    start, count = _circular_counts(xs, (plane + 0.5) / gx - dxa,
+                                    (plane + 0.5) / gx + dxa)
+    w = int(count.max())
+    if w == 0:
+        return torch.full(grid, dmax, dtype=_F32, device=dev), missed
+    fa = frac_atoms[order]
+    rs = radii[order]
+    j = torch.arange(w, device=dev)
+    rows = (start[:, None] + j) % n  # [gx, w]
+    r_pl = torch.where(j < count[:, None], rs[rows],
+                       torch.full_like(rs[rows], -math.inf))
+    diag = _is_diagonal(cell)
+    vx, vy, vz = (_axis_centres(g, dev) for g in grid)
+    out = torch.empty(grid, dtype=_F32, device=dev)
+    by = _rows_per_block(gz * w * 4, gy)
+    bx = _rows_per_block(gy * gz * w * 4, gx) if by == gy else 1
+    for x0 in range(0, gx, bx):
+        x1 = min(x0 + bx, gx)
+        rr = rows[x0:x1]
+        wx = _wrapped(vx[x0:x1, None], fa[rr, 0])  # [P, 1, w]
+        wz = _wrapped(vz, fa[rr, 2])
+        for y0 in range(0, gy, by):
+            wy = _wrapped(vy[y0:y0 + by], fa[rr, 1])
+            out[x0:x1, y0:y0 + by] = _block_min(
+                wx, wy, wz, r_pl[x0:x1], cell, diag)[:, 0]
+    return torch.clamp(out, max=dmax), missed
+
+
+def _wrap_offset(df):
+    return df - torch.floor(df + 0.5)
+
+
+def _norm2(d, cell, diag: bool):
+    """|matvec3(d, cell)|^2 in the reference's order for the wrapped
+    fractional offsets d = (dx, dy, dz), each of one broadcast shape; on
+    a diagonal cell each Cartesian component is d_k * cell[k, k] (the
+    zero terms of matvec3 change no bit of its square)."""
+    if diag:
+        return (_square(d[0] * cell[0, 0]) + _square(d[1] * cell[1, 1])) \
+            + _square(d[2] * cell[2, 2])
+    s = None
+    for j in range(3):
+        c = (d[0] * cell[0, j] + d[1] * cell[1, j]) + d[2] * cell[2, j]
+        c.mul_(c)
+        s = c if s is None else s.add_(c)
+    return s
+
+
+def _pair_min(p, w, wr, cell, diag: bool):
+    """f32 [..., P]: min over W of sqrt(|matvec3(wrap(p - w), cell)|^2)
+    - wr, for points p [..., P, 3] and candidates w [..., W, 3], wr
+    [..., W]."""
+    d = [_wrap_offset(p[..., :, None, k] - w[..., None, :, k])
+         for k in range(3)]
+    return (_sqrt(_norm2(d, cell, diag)) - wr[..., None, :]).amin(dim=-1)
+
+
+def point_distance_windowed(frac_atoms, cell, radii, pts, pts_x_lo,
+                            pts_x_hi, dmax: float, dxa: float,
+                            chunk: int = 1024, window: int = 1536):
+    """Clamped min distance-to-atom-surface at sample points (the MC
+    counterpart of ``distance_grid_windowed``): points sorted by
+    fractional x in chunks of ``chunk``, each tested against the
+    ``window`` atoms of sorted order that start at its reach
+    [x_lo - dxa, x_hi + dxa]; a chunk whose reach holds more atoms (or
+    spans the cell) misses. (f32 [M], missed bool tensor)."""
+    n = frac_atoms.shape[0]
+    m = pts.shape[0]
+    if m % chunk:
+        raise ValueError("sample count must divide into chunks")
+    dev = frac_atoms.device
+    n_chunks = m // chunk
+    p = pts.reshape(n_chunks, chunk, 3)
+    diag = _is_diagonal(cell)
+    if window >= n:  # no window exists: every atom for every chunk
+        return (torch.clamp(torch.cat([
+            _pair_min(p[q], frac_atoms, radii, cell, diag)
+            for q in range(n_chunks)]), max=dmax),
+            torch.zeros((), dtype=torch.bool, device=dev))
+    xs, order = _sort_by_x(frac_atoms)
+    fa, rs = frac_atoms[order], radii[order]
+    lo, hi = pts_x_lo - dxa, pts_x_hi + dxa
+    s, cnt = _circular_counts(xs, lo, hi)
+    missed = torch.any((cnt > window) | (hi - lo >= 1.0))
+    rows = (s[:, None] + torch.arange(window, device=dev)) % n  # [Q, W]
+    per = _rows_per_block(chunk * window * 4 * 3, n_chunks)
+    out = torch.cat([
+        _pair_min(p[q0:q0 + per], fa[rows[q0:q0 + per]],
+                  rs[rows[q0:q0 + per]], cell, diag)
+        for q0 in range(0, n_chunks, per)])
+    return torch.clamp(out.reshape(-1), max=dmax), missed
+
+
+def _sort_atoms_slab_y(frac_atoms, radii, nbx: int, y_img: float):
+    """Atoms plus their y-wrap images sorted by an (x slab, y) key
+    ``slab * 2 + fy``: each slab's run is y-ordered, and an atom with
+    fy < ``y_img`` also appears at fy + 1 (key + 1), so every y window is
+    one contiguous range even where it wraps. Images not needed carry key
+    1e9 and sort to the tail. (keys, x, y, z, r), each f32 [2N] in sorted
+    order (stable sort)."""
+    fx, fy, fz = (_wrap01(frac_atoms[:, k]) for k in range(3))
+    slab = torch.clamp((fx * nbx).to(_I32), max=nbx - 1).to(_F32)
+    key0 = slab * 2.0 + fy
+    key1 = torch.where(fy < y_img, key0 + 1.0,
+                       torch.full_like(key0, 1e9))
+    keys, order = torch.sort(torch.cat([key0, key1]), stable=True)
+    cols = [torch.cat([fx, fx]), torch.cat([fy, fy + 1.0]),
+            torch.cat([fz, fz]), torch.cat([radii, radii])]
+    return (keys, *(c[order] for c in cols))
+
+
+def distance_grid_windowed2(frac_atoms, cell, radii, grid, dmax: float,
+                            dxa: float, dya: float, tvx: int = 4,
+                            tvy: int = 16, nbx: int = 8, k_slabs: int = 3,
+                            window: int = 512):
+    """Clamped distance field through two-level sorted windows: each
+    (tvx, tvy, Gz) voxel tile tests the atoms of ``k_slabs`` x slabs,
+    each a ``window``-wide y-ordered run from the start of the tile's y
+    reach, as ``amof_tpu`` slices them (a run past the end of the sorted
+    array starts ``window`` rows before its end); rows with the image
+    key 1e9 are skipped. A (tile, slab) whose reach holds more rows than
+    ``window`` misses. (f32 [Gx, Gy, Gz] clamped at dmax, missed bool
+    tensor)."""
+    gx, gy, gz = grid
+    if gx % tvx or gy % tvy:
+        raise ValueError("tiles must divide the grid")
+    dev = frac_atoms.device
+    n_i, n_j = gx // tvx, gy // tvy
+    ry = (tvy - 1) / gy + 2 * dya
+    rx = (tvx - 1) / gx + 2 * dxa
+    if ry >= 1.0:
+        raise ValueError("y reach covers the cell; use the 1-level field")
+    if k_slabs < int(np.ceil(rx * nbx)) + 1:
+        raise ValueError(f"k_slabs={k_slabs} cannot cover x reach {rx} "
+                         f"with nbx={nbx}")
+    keys, xs, ys, zs, rs = _sort_atoms_slab_y(frac_atoms, radii, nbx, ry)
+    n2 = keys.shape[0]
+    x_lo = (np.arange(n_i) * tvx + 0.5) / gx - dxa
+    slab0 = np.floor((x_lo % 1.0) * nbx).astype(np.int64)
+    slabs = (slab0[:, None] + np.arange(k_slabs)[None, :]) % nbx
+    y_lo = ((np.arange(n_j) * tvy + 0.5) / gy - dya) % 1.0
+    q_lo = (slabs[:, None, :] * 2.0 + y_lo[None, :, None]).astype(
+        np.float32)  # [n_i, n_j, K]
+    q_hi = (q_lo + ry).astype(np.float32)
+    starts = torch.searchsorted(keys, torch.from_numpy(
+        q_lo.reshape(-1)).to(dev))
+    ends = torch.searchsorted(keys, torch.from_numpy(
+        q_hi.reshape(-1)).to(dev))
+    missed = torch.any((ends - starts) > window)
+    starts = torch.clamp(starts, max=n2 - window)
+    rows = (starts[:, None] + torch.arange(window, device=dev)).reshape(
+        n_i * n_j, k_slabs * window)
+    r_t = torch.where(keys[rows] < 5e8, rs[rows],
+                      torch.full_like(rs[rows], -math.inf))
+    diag = _is_diagonal(cell)
+    vx, vy, vz = (_axis_centres(g, dev) for g in grid)
+    out = torch.empty((n_i, n_j, tvx, tvy, gz), dtype=_F32, device=dev)
+    w = k_slabs * window
+    per = _rows_per_block(tvx * tvy * gz * w * 4, n_i * n_j)
+    for t0 in range(0, n_i * n_j, per):
+        t = torch.arange(t0, min(t0 + per, n_i * n_j), device=dev)
+        ti, tj = t // n_j, t % n_j
+        rr = rows[t]
+        wx = _wrapped(vx[ti[:, None] * tvx + torch.arange(tvx, device=dev)],
+                      xs[rr])
+        wy = _wrapped(vy[tj[:, None] * tvy + torch.arange(tvy, device=dev)],
+                      ys[rr])
+        wz = _wrapped(vz, zs[rr])
+        out.view(n_i * n_j, tvx, tvy, gz)[t0:t0 + len(t)] = _block_min(
+            wx, wy, wz, r_t[t], cell, diag)
+    out = torch.clamp(out, max=dmax)
+    return out.permute(0, 2, 1, 3, 4).reshape(gx, gy, gz), missed
+
+
+# --------------------------------------------------------------------------
+# Per-atom surface sampling (the per-frame path and the non-column plans)
+# --------------------------------------------------------------------------
+
+def _surface_counts(fa, ra, cand, cand_r, self_col, cell, inv_cell, r_probe,
+                    dirs, accessible, pocket, grid):
+    """(acc i32 [..., C], nacc) for centres fa [..., C, 3] (radii ra)
+    against candidate blockers cand [..., W, 3] (radii cand_r), the
+    column ``self_col`` [..., C] of each centre skipped: a sample point
+    on the R + r_probe sphere is valid where every other candidate's
+    R + r_probe sphere leaves it out (d > -1e-4), and is classified by
+    the voxel of the point or of a 0.2 A outward nudge."""
+    centres = matvec3(fa, cell)
+    pts = centres[..., None, :] + (ra[..., None, None] + r_probe) * dirs
+    fp = matvec3(pts, inv_cell)  # [..., C, K, 3]
+    off = [_wrap_offset(fp[..., :, :, None, k]
+                        - cand[..., None, None, :, k]) for k in range(3)]
+    d = _sqrt(_norm2(off, cell, _is_diagonal(cell)))
+    d = d - (cand_r[..., None, None, :] + r_probe)  # [..., C, K, W]
+    col = torch.arange(cand.shape[-2], device=fa.device)
+    skip = (col == self_col[..., None])[..., :, None, :] \
+        | (cand_r < -1e8)[..., None, None, :]
+    d = torch.where(skip, torch.full_like(d, math.inf), d)
+    valid = (d.amin(dim=-1) > -1e-4) & (ra[..., None] > -1e8)
+    nudge = fp + matvec3(dirs * 0.2, inv_cell)
+    acc = grid_lookup(accessible, fp, grid) | grid_lookup(accessible, nudge,
+                                                          grid)
+    poc = grid_lookup(pocket, fp, grid) | grid_lookup(pocket, nudge, grid)
+    return (torch.sum(valid & acc, dim=-1).to(_I32),
+            torch.sum(valid & ~acc & poc, dim=-1).to(_I32))
+
+
+def surface_point_classification(frac_atoms, cell, radii, r_probe, dirs,
+                                 accessible, pocket, grid):
+    """Per-atom accessible / non-accessible surface-point counts (i32 [N]
+    each): K points on each atom's R + r_probe sphere, valid where no
+    other atom's R + r_probe sphere holds them (Zeo++'s ASA construction,
+    sampled on Fibonacci directions), classified by the void voxel they
+    or their 0.2 A outward nudge fall in. Every atom is a blocker
+    candidate; rows with radius < -1e8 are padding."""
+    n = frac_atoms.shape[0]
+    k = dirs.shape[0]
+    inv_cell = host_inverse(cell)
+    per = _rows_per_block(k * n * 4 * 3, n)
+    cols = torch.arange(n, device=frac_atoms.device)
+    acc, nacc = zip(*(
+        _surface_counts(frac_atoms[i0:i0 + per], radii[i0:i0 + per],
+                        frac_atoms, radii, cols[i0:i0 + per], cell,
+                        inv_cell, r_probe, dirs, accessible, pocket, grid)
+        for i0 in range(0, n, per)))
+    return torch.cat(acc), torch.cat(nacc)
+
+
+def _x_width(cell) -> torch.Tensor:
+    """float32 |det(cell)| / |b x c|, computed on the CPU."""
+    c = cell.detach().to("cpu", _F32)
+    return (torch.abs(torch.linalg.det(c))
+            / torch.linalg.norm(torch.linalg.cross(c[1], c[2])))
+
+
+def surface_point_classification_windowed(frac_atoms, cell, radii, r_probe,
+                                          dirs, accessible, pocket, grid,
+                                          window: int = 1536,
+                                          chunk: int = 32):
+    """Sorted-window variant of ``surface_point_classification``: atoms
+    are sorted by wrapped fractional x (stable), and each chunk of
+    ``chunk`` sorted centres tests the ``chunk + 2 * window`` candidates
+    around it (circularly), the self column of row i being ``window +
+    i``. As in ``amof_tpu``, a last, partial chunk's candidates start
+    ``chunk + 2 * window`` rows before the end of the extended order. A
+    binary search per centre checks that every atom within the
+    worst-case fractional-x reach lies within ``window`` sorted places.
+
+    Returns (acc i32 [N'], nacc i32 [N'], orig_idx i32 [N'] (-1 on the
+    padding rows), sorted radii f32 [N], missed): counts in sorted order,
+    N' = N rounded up to ``chunk``."""
+    n = frac_atoms.shape[0]
+    dev = frac_atoms.device
+    width = chunk + 2 * window
+    if width >= n:
+        raise ValueError("window too wide; use the full variant")
+    inv_cell = host_inverse(cell)
+    keys, order = _sort_by_x(frac_atoms)
+    fa, rs = frac_atoms[order], radii[order]
+    gis = order.to(_I32)
+
+    rxa = _div((rs + radii.max()) + 2.0 * r_probe,
+               float(_x_width(cell))) + 1e-6
+    p = torch.arange(n, device=dev)
+    x_hi, x_lo = keys + rxa, keys - rxa
+    span_r = torch.where(
+        x_hi < 1.0, torch.searchsorted(keys, x_hi) - 1 - p,
+        (n - p) + torch.searchsorted(keys, x_hi - 1.0) - 1)
+    span_l = torch.where(
+        x_lo >= 0.0, p - torch.searchsorted(keys, x_lo),
+        p + (n - torch.searchsorted(keys, x_lo + 1.0)))
+    missed = torch.any((span_r > window) | (span_l > window))
+
+    pad = (-n) % chunk
+    fa_p = torch.cat([fa, torch.zeros((pad, 3), dtype=_F32, device=dev)])
+    rs_p = torch.cat([rs, torch.full((pad,), -1e9, dtype=_F32, device=dev)])
+    gis_p = torch.cat([gis, torch.full((pad,), -1, dtype=_I32, device=dev)])
+    n_chunks = (n + pad) // chunk
+    c0 = torch.arange(n_chunks, device=dev) * chunk
+    first = torch.clamp(c0, max=n - chunk) - window  # extended -> sorted
+    rows = (first[:, None] + torch.arange(width, device=dev)) % n
+    self_col = window + torch.arange(chunk, device=dev)
+    k = dirs.shape[0]
+    per = _rows_per_block(chunk * k * width * 4 * 3, n_chunks)
+    acc, nacc = [], []
+    for q0 in range(0, n_chunks, per):
+        q1 = min(q0 + per, n_chunks)
+        a, b = _surface_counts(
+            fa_p[q0 * chunk:q1 * chunk].reshape(q1 - q0, chunk, 3),
+            rs_p[q0 * chunk:q1 * chunk].reshape(q1 - q0, chunk),
+            fa[rows[q0:q1]], rs[rows[q0:q1]], self_col.expand(q1 - q0, -1),
+            cell, inv_cell, r_probe, dirs, accessible, pocket, grid)
+        acc.append(a.reshape(-1))
+        nacc.append(b.reshape(-1))
+    return torch.cat(acc), torch.cat(nacc), gis_p, rs, missed
+
+
+# --------------------------------------------------------------------------
+# -psd (covering spheres by FFT) and -ray_atom (sphere marching)
+# --------------------------------------------------------------------------
+
+def _voxel_offset_norms(cell, grid):
+    """|Cartesian displacement| of every voxel-index offset, wrapped so
+    offset 0 sits at index (0, 0, 0) (the circular-convolution layout)."""
+    dev = cell.device
+    offs = []
+    for g in grid:
+        i = torch.arange(g, device=dev)
+        offs.append(_div(((i + g // 2) % g - g // 2).to(_F32), g))
+    off = torch.stack(torch.meshgrid(*offs, indexing="ij"), dim=-1)
+    return _sqrt(squared_norm(matvec3(off, cell)))
+
+
+def covering_volume_counts(dist, centers_ok, target, cell, levels, grid):
+    """Covering-sphere (Gelb-Gubbins) pore-volume counts, i64 [L]: for
+    each radius t of ``levels`` the ``target`` voxels inside some sphere
+    of radius t centred on a voxel u with dist[u] >= t and
+    ``centers_ok[u]``. The periodic spherical dilation is an FFT circular
+    convolution (``torch.fft`` in float32) of the zero-mean centre mask
+    with the ball, its mean added back in closed form; the convolution is
+    integer-valued, so the ``> 0.5`` threshold is exact while the FFT
+    error stays below 0.5."""
+    off_norm = _voxel_offset_norms(cell, grid)
+    n_vox = grid[0] * grid[1] * grid[2]
+    out = []
+    for t in torch.as_tensor(levels, dtype=_F32).tolist():
+        mask = ((dist >= t) & centers_ok).to(_F32)
+        kern = (off_norm <= t).to(_F32)
+        m_sum = torch.sum(mask)
+        k_sum = torch.sum(kern)
+        m_mean = _div(m_sum, n_vox)
+        conv = torch.fft.irfftn(
+            torch.fft.rfftn(mask - m_mean) * torch.fft.rfftn(kern), s=grid
+        ) + m_mean * k_sum
+        out.append(torch.sum((conv > 0.5) & target))
+    return torch.stack(out)
+
+
+def ray_chord_lengths(dist, frac_points, dirs, cell, r_probe, grid,
+                      n_steps: int = 96, max_len: float = 50.0):
+    """Chord lengths (f32 [M]) of rays through the probe-fit void (Zeo++
+    -ray_atom): from each fractional start point, march along +dir and
+    -dir on the distance field, each step the clearance (field minus
+    r_probe) less half a voxel diagonal, at least a quarter of that
+    slack, ``n_steps`` steps a direction, until the clearance drops below
+    the slack; each direction capped at ``max_len`` A."""
+    inv_cell = host_inverse(cell)
+    dev = dist.device
+    inv_g = 1.0 / torch.tensor(grid, dtype=_F32, device=dev)
+    slack = 0.5 * _sqrt(torch.sum(_square(matvec3(inv_g[None], cell))))
+    start = matvec3(frac_points, cell)
+
+    def march(sign):
+        s = torch.zeros(frac_points.shape[0], dtype=_F32, device=dev)
+        alive = torch.ones(frac_points.shape[0], dtype=torch.bool,
+                           device=dev)
+        for _ in range(n_steps):
+            p = start + (sign * s)[:, None] * dirs
+            clearance = grid_lookup(dist, matvec3(p, inv_cell), grid) \
+                - r_probe
+            step = torch.clamp(clearance - slack, min=0.0)
+            alive = alive & (clearance > slack) & (s < max_len)
+            s = s + torch.where(alive, torch.maximum(step, 0.25 * slack),
+                                torch.zeros_like(s))
+            s = torch.clamp(s, max=max_len)
+        return s
+
+    return march(1.0) + march(-1.0)

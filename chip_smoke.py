@@ -80,6 +80,26 @@ phase 5 compares card and CPU on a 2048-atom excerpt (masks, labels, fits
 and per-atom validity equal, records to rel 1e-5); phase 6 times pore
 ms/frame, prepare and the kernels; phase 7 splits the pore step by stage.
 
+The per-frame Zeo++-style pore path (``pore.zeopp``) and
+``BatchedPore``'s distance-field plans join phases 4, 5 and 7
+(``per_frame_phase``, ``per_frame_cpu_parity``, ``per_frame_stages``):
+each call runs with the launch counters zeroed just before it and read
+just after it, kernel #7 must launch, and its wall time, #7 launches and
+peak device memory are printed: ``analyze_frame(-sa -vol)`` at its
+defaults (0.2 A, 276^3 voxels) on bench frames 0-1 and on the void-slab
+frame, kernel #7 then held against its plain version on the channel
+masks of bench frame 0 and of the void slab (open and periodic inits);
+``network`` with -sa -vol -res -chan -psd -volpo on the void slab
+at 0.2 A (the full O(V N) field; cut to 0.25 A past 120 s); -block,
+-ray_atom and the extras (-oms -axs -strinfo -gridG) on a 2048-atom
+excerpt at 0.5 A; ``BatchedPore`` with an explicit grid= (grid and mc),
+window=None, the two-level field (bench frames 0-1 at 276^3, where it
+engages) and winding="exact" on the void slab. Phase 5 holds the card
+against the CPU on the excerpt (fields, classification, surface and
+covering counts, chords equal; every option's result; the field plans'
+records to rel 1e-5); phase 7 splits the -sa -vol and full-options calls
+by stage (``OUT_DIR/chip_smoke_per_frame_stages.txt``).
+
 Per-analysis entry points (``rdf``, ``cn``, ``bad``, ``msd`` and
 ``pore.core``, through their pandas-free column functions, which the
 classes' ``from_trajectory`` wraps; the card has no pandas): phase 2 is
@@ -1807,6 +1827,342 @@ def pore_times(pb, dev, card):
 
 
 # --------------------------------------------------------------------------
+# The per-frame pore path (zeopp) and BatchedPore's distance-field plans
+# --------------------------------------------------------------------------
+
+PER_FRAME_FULL = dict(sa=True, vol=True, res=True, chan=True, psd=True,
+                      volpo=True)
+FULL_FIELD_LIMIT_S = 120.0  # past this, the full-field call is cut to 0.25 A
+EXCERPT_RES = 0.5
+EXTRA = "-oms -axs 1.5 -strinfo -gridG"
+
+
+def timed_call(label, fn, card, rows):
+    """``fn()`` on the card with the launch counters zeroed just before it
+    and read just after it: wall s (host clock around a synchronize),
+    kernel #7's launches (which must be > 0) and the peak device memory,
+    printed and appended to ``rows``. Returns fn's result."""
+    import torch
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"per-frame {label}: {wall:.3f} s, flood_fill launches "
+        f"{launches['flood_fill']}, peak {peak:.2f} GiB on {card}")
+    check(launches["flood_fill"] > 0,
+          f"kernel flood_fill was not launched on per-frame {label}")
+    rows.append({"call": label, "s": wall,
+                 "flood_fill_launches": launches["flood_fill"],
+                 "peak_gib": peak})
+    return out
+
+
+def scalars(out):
+    return {k: (round(v, 4) if isinstance(v, float) else v)
+            for k, v in out.items() if not hasattr(v, "shape")}
+
+
+# stages of the per-frame path timed by per_frame_stages: (module,
+# attribute, label); "call (all)" contains the others, the exact
+# classification contains its labels
+PER_FRAME_STAGES = [
+    ("amof_tpu_torch.pore.zeopp", "analyze_frame", "call (all)"),
+    ("amof_tpu_torch.pore.grid_kernel", "distance_grid_windowed",
+     "windowed field"),
+    ("amof_tpu_torch.pore.grid_kernel", "distance_grid", "full field"),
+    ("amof_tpu_torch.pore.winding", "void_classification_exact",
+     "exact classification"),
+    ("amof_tpu_torch.pore.grid_kernel", "label_components", "labels (#7)"),
+    ("amof_tpu_torch.pore.grid_kernel",
+     "surface_point_classification_windowed", "surface (windowed)"),
+    ("amof_tpu_torch.pore.grid_kernel", "covering_volume_counts",
+     "covering FFTs (-psd)"),
+    ("amof_tpu_torch.pore.grid_kernel", "dilate", "dilation (-volpo)"),
+]
+
+
+def per_frame_stages(batch, slab, dev):
+    """Phase 7, per-frame path: the -sa -vol call on bench frame 0 and
+    the full-options call on the void slab once more, each piece
+    bracketed by a synchronize (host s; the table goes to OUT_DIR)."""
+    from amof_tpu_torch.pore import zeopp
+
+    lines = stage_table(PER_FRAME_STAGES, lambda: zeopp.analyze_frame(
+        batch.frame(0), sa=True, vol=True, device=dev), 1,
+        "per-frame -sa -vol, bench frame 0")
+    lines += stage_table(PER_FRAME_STAGES, lambda: zeopp.analyze_frame(
+        slab.frame(0), device=dev, **PER_FRAME_FULL), 1,
+        "per-frame -sa -vol -res -chan -psd -volpo, void slab")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_per_frame_stages.txt"),
+              "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    for line in lines:
+        say(line)
+
+
+def first_mask_of(fn, store):
+    """``fn()`` with the first mask that the per-frame path's exact
+    classification (``winding.void_classification_exact``) gets appended
+    to ``store``."""
+    from amof_tpu_torch.pore import winding
+
+    classify = winding.void_classification_exact
+
+    def recording(mask, *args, **kwargs):
+        if not store:
+            store.append(mask)
+        return classify(mask, *args, **kwargs)
+
+    winding.void_classification_exact = recording
+    try:
+        return fn()
+    finally:
+        winding.void_classification_exact = classify
+
+
+def per_frame_flood_check(what, mask):
+    """Kernel #7 against its plain version on a per-frame call's own
+    channel mask (276^3 at 0.2 A): the open-boundary labels of the
+    linear-index init (the exact classification's call) and the periodic
+    {1, 0, -1} init of their winding seeds. Fails on any differing
+    voxel."""
+    import torch
+
+    from amof_tpu_torch.pore import grid_kernel as gk
+
+    mask = mask.bool()
+    dev = mask.device
+    open_init = torch.where(
+        mask, torch.arange(mask.numel(), dtype=torch.int32,
+                           device=dev).reshape(mask.shape),
+        torch.full(mask.shape, -1, dtype=torch.int32, device=dev))
+    t0 = time.perf_counter()
+    lab = gk.propagate_fixpoint(open_init, False)
+    ref = gk.propagate_fixpoint_plain(open_init, False)
+    check(torch.equal(lab, ref),
+          f"flood_fill != plain on the per-frame mask of {what}, open "
+          f"boundaries ({int((lab != ref).sum())} voxels differ)")
+    seeds = gk.winding_seeds(lab, mask)
+    tern = torch.where(seeds, 1, torch.where(mask, 0, -1)).to(torch.int32)
+    acc = gk.propagate_fixpoint(tern, True)
+    ref = gk.propagate_fixpoint_plain(tern, True)
+    check(torch.equal(acc, ref),
+          f"flood_fill != plain on the per-frame mask of {what}, periodic "
+          f"ternary init ({int((acc != ref).sum())} voxels differ)")
+    say(f"flood fill on the per-frame mask of {what} "
+        f"{tuple(mask.shape)}: {int(mask.sum())} void voxels, "
+        f"{int(seeds.sum())} winding seeds, open and periodic labels equal "
+        f"to plain ({time.perf_counter() - t0:.1f} s)")
+
+
+def per_frame_phase(batch, dev, card):
+    """Phase 4, the per-frame pore path, each call counted on its own:
+    (1) ``zeopp.analyze_frame(-sa -vol)`` at its defaults (resolution
+    0.2 A: 276^3 voxels, the sorted-window field) on bench frames 0-1 and
+    void-slab frame 0, the call ``BatchedPore``'s terminal fallback makes,
+    with kernel #7 held against its plain version on the channel masks
+    of bench frame 0 and void-slab frame 0 (``per_frame_flood_check``);
+    (2) ``zeopp.network`` on void-slab frame 0 with -sa -vol -res -chan
+    -psd -volpo at 0.2 A (-res and -psd take the full O(V N) field), cut
+    to 0.25 A if it took longer than FULL_FIELD_LIMIT_S; (3) -block,
+    -ray_atom and the extras on the 2048-atom excerpt at 0.5 A; (4)
+    ``BatchedPore``'s distance-field plans: explicit grid= (grid mode and
+    mc) and window=None on the excerpt, the two-level field on bench
+    frames 0-1 at an explicit 276^3 grid (where window="auto" engages it),
+    and winding="exact" on the void slab (column plan). Returns the rows
+    for the JSON line."""
+    import numpy as np
+
+    from amof_tpu_torch.pore import BatchedPore, zeopp
+
+    rows = []
+    slab = pore_batch_of(batch, 1, squeeze=0.72)
+    for label, frame in (("sa vol, bench frame 0", batch.frame(0)),
+                         ("sa vol, bench frame 1", batch.frame(1)),
+                         ("sa vol, void-slab frame 0", slab.frame(0))):
+        masks = []
+        out = timed_call(label, lambda: first_mask_of(
+            lambda: zeopp.analyze_frame(frame, sa=True, vol=True,
+                                        device=dev), masks), card, rows)
+        check(all(np.isfinite(v) for v in out.values()),
+              f"per-frame {label}: not finite")
+        say(f"per-frame {label}: {scalars(out)}")
+        if "frame 0" in label:
+            per_frame_flood_check(label, masks[0])
+    out = timed_call("full options (res chan psd volpo), void slab, 0.2 A",
+                     lambda: zeopp.network(slab.frame(0), device=dev,
+                                           **PER_FRAME_FULL), card, rows)
+    say(f"per-frame full options at 0.2 A: {scalars(out)}")
+    check(out["Number_of_channels"] >= 1 and out["AV_A^3"] > 0,
+          "void slab: no channel at 0.2 A")
+    if rows[-1]["s"] > FULL_FIELD_LIMIT_S:
+        out = timed_call(
+            "full options (res chan psd volpo), void slab, 0.25 A (cut)",
+            lambda: zeopp.network(slab.frame(0), device=dev,
+                                  resolution=0.25, **PER_FRAME_FULL),
+            card, rows)
+        say(f"per-frame full options at 0.25 A: {scalars(out)}")
+
+    small = per_frame_excerpt()
+    out = timed_call("block ray_atom extras, excerpt, 0.5 A",
+                     lambda: zeopp.network(
+                         small.frame(0), device=dev, sa=True, block=True,
+                         ray_atom=True, resolution=EXCERPT_RES,
+                         extra=EXTRA), card, rows)
+    say(f"per-frame block/ray/extras: {scalars(out)}")
+    check(out["RayAtom_samples"] > 0, "excerpt: no ray")
+
+    for label, pb, kw in (
+            ("BatchedPore grid=, excerpt", small,
+             dict(grid=(64, 64, 64))),
+            ("BatchedPore grid= mc, excerpt", small,
+             dict(grid=(64, 64, 64), vol_method="mc")),
+            ("BatchedPore window=None, excerpt", small,
+             dict(window=None, resolution=EXCERPT_RES)),
+            ("BatchedPore two-level field, bench frames 0-1",
+             pore_batch_of(batch, 2), dict(grid=(276, 276, 276))),
+            ("BatchedPore winding=exact, void slab (column plan)",
+             pore_batch_of(batch, 4, squeeze=0.72),
+             dict(PORE, winding="exact"))):
+        records, meta = timed_call(label, lambda: BatchedPore(**kw).run(
+            pb, device=dev), card, rows)
+        for r in records:
+            check(all(np.isfinite(v) for v in r.values()),
+                  f"{label}: not finite")
+        rows[-1].update(dist_window=meta["dist_window"],
+                        surf_window=meta["surf_window"],
+                        dist2=meta["dist2"],
+                        column_plan=meta["col_plan"] is not None)
+        say(f"{label}: ASA {records[0]['ASA_A^2']:.1f} A^2, AV "
+            f"{records[0]['AV_A^3']:.1f} A^3; windows {meta['dist_window']}"
+            f" / {meta['surf_window']}, dist2 {meta['dist2']}")
+        if "two-level" in label:
+            check(meta["dist2"] is not None, "the two-level field did not "
+                  "engage at 276^3 on the bench frame")
+        if "winding" in label:
+            face, _ = BatchedPore(**PORE).run(pb, device=dev)
+            check(face == records, "winding=exact records differ from the "
+                  "face test's on the void slab")
+    per_frame_stages(batch, slab, dev)
+    return rows
+
+
+def per_frame_excerpt():
+    """The 2048-atom excerpt of the card == CPU checks (bench recipe, seed
+    3, z squeezed to 72%), two frames."""
+    small, _ = make_trajectory(2, 2048, seed=3)
+    return pore_batch_of(small, 2, squeeze=0.72)
+
+
+def equal_on(label, got, ref, rel=None):
+    """Card and CPU outputs equal (tensors, arrays), or scalars within
+    ``rel``."""
+    import numpy as np
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    if isinstance(got, np.ndarray):
+        diff = int((got != ref).sum()) if got.shape == ref.shape else -1
+        check(diff == 0, f"per-frame card != CPU: {label} ({diff} items "
+              f"differ)")
+    elif isinstance(got, float) and rel is not None:
+        check(abs(got - ref) <= rel * max(abs(ref), 1e-30),
+              f"per-frame card != CPU: {label}: {got} vs {ref}")
+    else:
+        check(got == ref, f"per-frame card != CPU: {label}: {got} vs {ref}")
+
+
+def per_frame_cpu_parity(dev):
+    """Phase 5, per-frame path: the 2048-atom excerpt on the card against
+    the port's own CPU path. The fields (full, one-level and two-level
+    window, MC points), the exact classification, both surface
+    classifications, the covering counts and ray chords equal; every
+    option's result (arrays equal, scalars rel 1e-5) and BatchedPore's
+    distance-field records (rel 1e-5) agree."""
+    import numpy as np
+    import torch
+
+    from amof_tpu_torch.data import elements
+    from amof_tpu_torch.pore import BatchedPore, winding, zeopp
+    from amof_tpu_torch.pore import grid_kernel as gk
+
+    t0 = time.perf_counter()
+    small = per_frame_excerpt()
+    frame = small.frame(0)
+    cell = frame.get_cell().astype(np.float32)
+    grid = zeopp._grid_dims(cell, EXCERPT_RES)
+    frac = frame.get_positions() @ np.linalg.inv(cell.astype(np.float64))
+    frac = (frac - np.floor(frac)).astype(np.float32)
+    radii = elements.vdw_radius_array()[frame.get_atomic_numbers()].astype(
+        np.float32)
+    pts = np.random.default_rng(20240817).random((8192, 3)).astype(
+        np.float32)
+    pts = pts[np.argsort(pts[:, 0], kind="stable")]
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        f, c, r, p = (torch.from_numpy(a).to(d) for a in (frac, cell, radii,
+                                                           pts))
+        full = gk.distance_grid(f, c, r, grid)
+        win = gk.distance_grid_windowed(f, c, r, grid, dmax=1.201, dxa=0.095,
+                                        chunk=2048, window=768)
+        win2 = gk.distance_grid_windowed2(
+            f, c, r, (64, 64, 64), dmax=1.201, dxa=0.095, dya=0.095, tvx=8,
+            tvy=16, nbx=5, k_slabs=3, window=384)
+        pdist = gk.point_distance_windowed(
+            f, c, r, p, p[::2048, 0].contiguous(),
+            p[2047::2048, 0].contiguous(), dmax=1.201, dxa=0.095,
+            chunk=2048, window=896)
+        cls = winding.void_classification_exact(full >= 1.2)
+        dirs = torch.from_numpy(gk.fibonacci_sphere(24)).to(d)
+        surf = gk.surface_point_classification(f, c, r, 1.2, dirs, cls[1],
+                                               cls[2], grid)
+        surf_w = gk.surface_point_classification_windowed(
+            f, c, r, 1.2, dirs, cls[1], cls[2], grid, window=640)
+        cover = gk.covering_volume_counts(
+            full, cls[1], cls[1], c,
+            (0.05 * np.arange(64)).astype(np.float32), grid)
+        chords = gk.ray_chord_lengths(full, p[:4096], p[4096:] - 0.5, c,
+                                      0.0, grid)
+        outs.append([full, *win, *win2, *pdist, *cls, *surf, *surf_w, cover,
+                     chords])
+    for i, (g, c) in enumerate(zip(*outs)):
+        equal_on(f"field/classification output {i}", g, c)
+    kw = dict(resolution=EXCERPT_RES, block=True, ray_atom=True,
+              extra=EXTRA, **PER_FRAME_FULL)
+    got = zeopp.network(frame, device=dev, **kw)
+    ref = zeopp.network(frame, device="cpu", **kw)
+    check(set(got) == set(ref), "per-frame card/CPU keys differ")
+    for key in ref:
+        equal_on(key, got[key], ref[key], rel=1e-5)
+    worst = 0.0
+    for kw in (dict(grid=(64, 64, 64)),
+               dict(grid=(64, 64, 64), vol_method="mc"),
+               dict(window=None, resolution=EXCERPT_RES, winding="exact")):
+        gpu, _ = BatchedPore(**kw).run(small, device=dev)
+        cpu, _ = BatchedPore(**kw).run(small, device="cpu")
+        for a, b in zip(gpu, cpu):
+            for key in a:
+                rel = abs(a[key] - b[key]) / max(abs(b[key]), 1e-30)
+                worst = max(worst, rel)
+                check(rel <= 1e-5, f"BatchedPore {kw} {key}: card "
+                      f"{a[key]} vs CPU {b[key]}")
+    say(f"per-frame card == CPU plain on the {len(radii)}-atom excerpt: "
+        f"fields (full, windowed, two-level, MC points), classification, "
+        f"surface counts (full, windowed), covering counts and chords "
+        f"equal; network(-sa -vol -res -chan -psd -volpo -block -ray_atom "
+        f"{EXTRA}) equal; BatchedPore field plans max rel diff {worst:.2e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+# --------------------------------------------------------------------------
 # The runtime warmup (kernel #9) and the cold start
 # --------------------------------------------------------------------------
 
@@ -2383,6 +2739,10 @@ def main():
     _, _, plaunch = pore_main(pb, dev)
     pside = pore_side_run(batch, dev)
 
+    # 4, per-frame pore: each call of the per-frame path and of
+    # BatchedPore's distance-field plans counted on its own
+    per_frame = per_frame_phase(batch, dev, card)
+
     # 4, entry points: each analysis on its own, counted on its own
     entry_launches, entry_walls = entry_points(batch, box, pb, out, meta,
                                                dev, card)
@@ -2391,6 +2751,7 @@ def main():
     # 5. correctness against the plain path on the CPU
     cpu_parity(batch)
     pore_cpu_parity(dev)
+    per_frame_cpu_parity(dev)
     entry_cpu_parity(dev)
 
     # 6. times
@@ -2443,6 +2804,9 @@ def main():
                                        else None)})
         if name == "warmup_copy":
             kernels[-1]["copy_ms"] = copy_ms
+        if name == "flood_fill":
+            kernels[-1]["per_frame_launches"] = {
+                r["call"]: r["flood_fill_launches"] for r in per_frame}
         kernels[-1].update(pextras.get(name, fextras.get(name, {})))
         if name in geometry:
             kernels[-1]["geometry"] = geometry[name]
@@ -2456,6 +2820,7 @@ def main():
                       "pore_prepare_s": pore_prep,
                       "pore_first_pass_misses": pore_miss,
                       "entry_point_s": entry_walls, "cn_passes": cn_times,
+                      "per_frame_pore": per_frame,
                       "cold_start": cold,
                       "launch_path_us": host_us, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,14 @@
 """Parity of the port's ``Pore`` (``from_trajectory`` through the batched
-column path, ``read_zeopp``, the '.pore' round-trip) with ``amof_tpu``'s
-class on the CPU, and the port's refusal of the per-frame path's
-options, which it has not ported.
+column path and through the per-frame path that options outside the
+batchable set take, ``read_zeopp``, the '.pore' round-trip) with
+``amof_tpu``'s class on the CPU, and a kernel launch failure, which
+reaches the caller of either path instead of dropping frames.
 
 Tolerance: records rel 1e-5, as in test_torch_pore_batch (the same
-per-voxel, per-point and per-atom results summed in another order).
+per-voxel, per-point and per-atom results summed in another order); the
+per-frame path's arrays (histograms, blocking spheres) exactly.
 """
 
-import numpy as np
 import pytest
 import torch
 
@@ -15,6 +16,8 @@ import amof_tpu.pore.core as jpore
 import amof_tpu_torch.pore.core as tpore
 from amof_tpu.core.frames import FrameBatch as JaxFrameBatch
 from amof_tpu_torch import FrameBatch
+from amof_tpu_torch._build import KernelError
+from amof_tpu_torch.pore import grid_kernel
 
 from test_torch_pore_batch import KW, assert_records_close, slab_glass
 
@@ -40,17 +43,32 @@ def test_pore_matches_amof_tpu(tmp_path):
 @pytest.mark.parametrize("option", [dict(psd=True), dict(chan=True),
                                     dict(mass={"C": 12.0}), dict(block=True)])
 def test_per_frame_options_raise(option):
-    with pytest.raises(NotImplementedError, match="per-frame"):
+    """Options outside the batchable set take the per-frame path in both
+    packages (the test's name is from when the port refused them)."""
+    arrays = slab_glass()
+    got = tpore.Pore.from_trajectory(FrameBatch(*arrays), device="cpu",
+                                     **KW, **option)
+    ref = jpore.Pore.from_trajectory(JaxFrameBatch(*arrays), **KW, **option)
+    assert list(got.data.columns) == list(ref.data.columns)
+    assert list(got.data["Step"]) == list(ref.data["Step"]) == [0, 1]
+    assert_records_close(got.data.to_dict("records"),
+                         ref.data.to_dict("records"))
+    assert (got.data["ASA_A^2"] > 0).all()
+
+
+@pytest.mark.parametrize("option", [{}, dict(psd=True)])
+def test_batch_path_errors_propagate(option, monkeypatch):
+    """A launch failure of kernel #7 (stubbed: the flood-fill wrapper
+    raises as ``_build.check`` does) reaches the caller of the batched
+    path and of the per-frame path; no frame is dropped."""
+    def fail(init, periodic):
+        raise KernelError("flood_fill: CUDA launch failed (error 700: "
+                          "stub)")
+
+    monkeypatch.setattr(grid_kernel, "propagate_fixpoint", fail)
+    with pytest.raises(KernelError, match=r"launch failed .*stub"):
         tpore.Pore.from_trajectory(FrameBatch(*slab_glass()), device="cpu",
                                    **KW, **option)
-
-
-def test_batch_path_errors_propagate():
-    """A cell too small for the column plan: ``amof_tpu`` would drop to
-    its per-frame path; the port raises the batch path's error."""
-    with pytest.raises(NotImplementedError, match="too small"):
-        tpore.Pore.from_trajectory(FrameBatch(*slab_glass(n=200, box=16.0)),
-                                   device="cpu", **KW)
 
 
 def test_read_zeopp_matches_amof_tpu(tmp_path):

@@ -54,6 +54,8 @@ def test_package_has_the_slice_modules():
                  "amof_tpu_torch.pore.surface_kernel",
                  "amof_tpu_torch.pore.batch",
                  "amof_tpu_torch.pore.core",
+                 "amof_tpu_torch.pore.winding",
+                 "amof_tpu_torch.parallel.host",
                  "amof_tpu_torch.rdf",
                  "amof_tpu_torch.cn",
                  "amof_tpu_torch.bad",

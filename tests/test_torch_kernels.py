@@ -769,6 +769,111 @@ def test_flood_fill_geometry_matches_wrapper(cuda):
             assert geo[step]["blocks_per_sm"] > 0
 
 
+def bench_glass_frame(n_atoms=10240, squeeze=None, density=0.062, seed=0):
+    """(frac, cell, radii) of frame 0 of the bench glass (the bench
+    recipe: Zn(C3N2H3)2 at the ZIF-4 number density, default vdW radii),
+    z optionally squeezed (the void slab)."""
+    from amof_tpu_torch.data import elements
+
+    rng = np.random.default_rng(seed)
+    counts = {30: n_atoms // 17, 7: 4 * (n_atoms // 17),
+              6: 6 * (n_atoms // 17)}
+    counts[1] = n_atoms - sum(counts.values())
+    species = np.concatenate([np.full(c, z) for z, c in counts.items()])
+    box = (n_atoms / density) ** (1 / 3)
+    frac = rng.uniform(0, box, (n_atoms, 3)).astype(np.float32) / box
+    if squeeze is not None:
+        frac[:, 2] *= squeeze
+    cell = np.eye(3, dtype=np.float32) * np.float32(box)
+    radii = elements.vdw_radius_array()[species].astype(np.float32)
+    return frac.astype(np.float32), cell, radii
+
+
+def assert_flood_matches_plain(mask, dev):
+    """Kernel #7 vs the plain sweeps on ``mask``: component labels open
+    and periodic, and channel propagation from 1% seeds."""
+    from amof_tpu_torch.pore import grid_kernel
+
+    m = torch.from_numpy(mask).to(dev)
+    lin = torch.where(m, torch.arange(m.numel(), device=dev,
+                                      dtype=torch.int32).reshape(m.shape),
+                      torch.full(m.shape, -1, dtype=torch.int32,
+                                 device=dev))
+    seeds = m & (torch.rand(m.shape, device=dev) < 0.01)
+    tern = torch.where(seeds, 1, torch.where(m, 0, -1)).to(torch.int32)
+    for init, periodic in ((lin, False), (lin, True), (tern, True)):
+        assert_same([grid_kernel.propagate_fixpoint(init, periodic)],
+                    [grid_kernel.propagate_fixpoint_plain(init, periodic)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("squeeze,probe", [(None, 1.2), (None, 0.6),
+                                           (0.72, 1.2)])
+def test_flood_fill_on_per_frame_bench_masks(cuda, squeeze, probe):
+    """Kernel #7 on the per-frame path's masks: the bench glass at
+    zeopp's default 0.2 A (276^3 voxels, the sorted-window field) at a
+    1.2 A probe (no channel), a 0.6 A probe (percolating) and on the
+    void slab."""
+    from amof_tpu_torch.pore import grid_kernel, zeopp
+
+    frac, cell, radii = bench_glass_frame(squeeze=squeeze)
+    grid = zeopp._grid_dims(cell, 0.2)
+    assert grid == (276, 276, 276)
+    f, c, r = on(cuda, frac, cell, radii)
+    dist, missed = grid_kernel.distance_grid_windowed(
+        f, c, r, grid, dmax=2.201, dxa=0.075, chunk=2048, window=4096)
+    assert not bool(missed)
+    mask = (dist >= probe).cpu().numpy()
+    assert mask.any() and not mask.all()
+    assert_flood_matches_plain(mask, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(45, 37, 29), (33, 50, 27), (7, 61, 13),
+                                  (64, 30, 81)])
+def test_flood_fill_on_explicit_grid_masks(cuda, grid):
+    """Kernel #7 on masks of odd, non-multiple-of-8 grids that an
+    explicit ``grid=`` gives the per-frame path and BatchedPore's
+    distance-field plans (a 2048-atom glass, z squeezed, full field)."""
+    from amof_tpu_torch.pore import grid_kernel
+
+    frac, cell, radii = bench_glass_frame(2048, squeeze=0.72, seed=3)
+    f, c, r = on(cuda, frac, cell, radii)
+    dist = grid_kernel.distance_grid(f, c, r, grid)
+    for probe in (0.8, 1.2):
+        assert_flood_matches_plain((dist >= probe).cpu().numpy(), cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sheared", [False, True])
+def test_distance_fields_on_the_card_equal_the_cpu(cuda, sheared):
+    """The per-frame path's torch fields (full, one-level and two-level
+    window, MC points) and surface counts give the same bits on the card
+    as on the CPU (IEEE sqrt, no contraction: each op is one kernel)."""
+    from amof_tpu_torch.pore import grid_kernel
+
+    frac, cell, radii = bench_glass_frame(2048, squeeze=0.72, seed=3)
+    if sheared:
+        cell[1, 0], cell[2, 0], cell[2, 1] = 2.0, -1.5, 1.75
+    grid = (44, 40, 36)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        f, c, r = on(dev, frac, cell, radii)
+        full = grid_kernel.distance_grid(f, c, r, grid)
+        win = grid_kernel.distance_grid_windowed(
+            f, c, r, grid, dmax=1.201, dxa=0.1, chunk=1024, window=1024)
+        win2 = grid_kernel.distance_grid_windowed2(
+            f, c, r, grid, dmax=1.201, dxa=0.1, dya=0.1, tvx=4, tvy=8,
+            nbx=4, k_slabs=3, window=512)
+        m = full >= 1.2
+        dirs = torch.from_numpy(grid_kernel.fibonacci_sphere(16)).to(dev)
+        surf = grid_kernel.surface_point_classification(
+            f, c, r, 1.2, dirs, m, ~m, grid)
+        outs.append([t.cpu() for t in (full, *win, *win2, *surf)])
+    for g, r in zip(*outs):
+        assert torch.equal(g, r)
+
+
 @pytest.mark.cuda
 def test_pore_wrappers_count_launches(cuda):
     from amof_tpu_torch.pore import grid_kernel, surface_kernel
