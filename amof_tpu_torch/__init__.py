@@ -4,7 +4,9 @@ kernels for Hopper (H100) where the JAX package had Pallas TPU kernels.
 
 Each analysis class (``rdf.Rdf``, ``rdf.CoordinationNumber``,
 ``cn.CoordinationNumber``, ``bad.Bad``, ``bad.BadByCn``,
-``msd.WindowMsd``, ``msd.DirectMsd``, ``pore.Pore``) is built with
+``msd.WindowMsd``, ``msd.DirectMsd``, ``pore.Pore``, ``ring.Ring``) is
+built from a trajectory (``trajectory.read_traj`` reads xyz, LAMMPS,
+CP2K, VASP and CIF files) with
 ``from_trajectory`` / ``from_file``, keeps its result in ``.data`` and
 writes it with ``write_to_file``; the fused step (``pipelines.analyze``,
 ``parallel.pipeline.FusedAnalysis``) and the batched pore step

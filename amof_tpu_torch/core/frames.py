@@ -205,21 +205,22 @@ class Trajectory:
 
     @classmethod
     def from_traj(cls, filename, index=None, format=None, unzip=False):
-        """Read a trajectory file (parity: amof/trajectory.py:38-60;
-        gzip is handled transparently regardless of ``unzip``). The port
-        reads xyz and extxyz only: any other ``format`` (LAMMPS, CP2K, ...)
-        raises ValueError rather than being read as xyz."""
-        del unzip
-        if format not in (None, "xyz", "extxyz"):
-            raise ValueError(
-                f"Trajectory.from_traj: format {format!r} is not read by "
-                f"amof_tpu_torch (xyz and extxyz only)")
-        from amof_tpu_torch.io.xyz import read_xyz
+        """Read a trajectory file (parity: amof/trajectory.py:38-60)
+        through ``amof_tpu_torch.trajectory.read_traj``: ``format`` is
+        honoured (sniffed from the name and content when None), gzip is
+        handled transparently regardless of ``unzip``."""
+        from amof_tpu_torch.trajectory import read_traj
 
-        frames = read_xyz(filename, index if index is not None else ":")
-        if isinstance(frames, Frame):
-            frames = [frames]
-        return cls(frames)
+        return cls(read_traj(filename, index, format=format,
+                             unzip=unzip).frames)
+
+    @classmethod
+    def from_lammps_data(cls, filename, atom_style):
+        """Single-frame trajectory from a LAMMPS data file
+        (parity: amof/trajectory.py:62-74)."""
+        from amof_tpu_torch.io.lammps import read_lammps_data
+
+        return cls([read_lammps_data(filename, atom_style)])
 
     @staticmethod
     def get_index_closest(my_list, my_number):

@@ -1,3 +1,3 @@
-from amof_tpu_torch.io.xyz import read_xyz
+from amof_tpu_torch.io.xyz import read_xyz, write_xyz
 
-__all__ = ["read_xyz"]
+__all__ = ["read_xyz", "write_xyz"]

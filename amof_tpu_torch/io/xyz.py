@@ -1,8 +1,8 @@
 """
-XYZ / extended-XYZ trajectory reader.
+XYZ / extended-XYZ trajectory reader and writer.
 
-Standalone replacement for the ``ase.io.read`` xyz path the reference
-relies on (amof/trajectory.py:38-60). Supports:
+Standalone replacement for the ``ase.io.read``/``ase.io.write`` xyz paths
+the reference relies on (amof/trajectory.py:38-60, 149, 165). Supports:
 
   - plain XYZ (symbol x y z per line) and extended XYZ with a
     ``Lattice="ax ay az bx ... cz"`` comment and a ``Properties=`` spec
@@ -16,8 +16,9 @@ relies on (amof/trajectory.py:38-60). Supports:
 from __future__ import annotations
 
 import gzip
+import io as _io
 import re
-from typing import List, Optional, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -47,10 +48,12 @@ def parse_index(index) -> Union[int, slice]:
     raise ValueError(f"cannot interpret index {index!r}")
 
 
-def _open(filename):
+def _open(filename, mode="rt"):
     if str(filename).endswith(".gz"):
-        return gzip.open(filename, "rt")
-    return open(filename)
+        if "t" not in mode and "b" not in mode:
+            mode += "t"
+        return gzip.open(filename, mode)
+    return open(filename, mode)
 
 
 def _species_pos_columns(props: Optional[str]):
@@ -122,3 +125,24 @@ def read_xyz(filename, index=None):
     if isinstance(idx, int):
         return frames[idx]
     return frames[idx]
+
+
+def write_xyz(filename, frames: Union[Frame, Sequence[Frame]], mode="w"):
+    """Write frame(s) as extended XYZ with a Lattice comment."""
+    if isinstance(frames, Frame):
+        frames = [frames]
+    buf = _io.StringIO()
+    for frame in frames:
+        buf.write(f"{len(frame)}\n")
+        if frame.pbc and np.any(frame.cell):
+            lattice = " ".join(f"{v:.8f}" for v in frame.cell.ravel())
+            buf.write(
+                f'Lattice="{lattice}" Properties=species:S:1:pos:R:3 pbc="T T T"\n'
+            )
+        else:
+            buf.write("Properties=species:S:1:pos:R:3\n")
+        symbols = frame.get_chemical_symbols()
+        for sym, (x, y, z) in zip(symbols, frame.positions):
+            buf.write(f"{sym:<3s} {x:21.14f} {y:21.14f} {z:21.14f}\n")
+    with _open(filename, mode) as f:
+        f.write(buf.getvalue())

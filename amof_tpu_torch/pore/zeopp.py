@@ -368,19 +368,20 @@ def _blocking_spheres(labels, dist, cell, grid):
 
 def network(frame_or_file, **kwargs) -> Dict[str, float]:
     """Functional counterpart of pysimm's ``network(input, sa=True,
-    vol=True, ...)``, in-process: takes a Frame (or an xyz file path) and
+    vol=True, ...)``, in-process: takes a Frame (or an xyz or CIF path) and
     returns the result dict instead of writing .sa/.vol files (parity:
     amof/pore/pysimmzeopp.py:52-158). ``device`` is one of the kwargs
     ("cuda" by default)."""
     frame = frame_or_file
     if isinstance(frame_or_file, str):
         if str(frame_or_file).endswith(".cif"):
-            raise NotImplementedError(
-                "the port reads xyz only; the CIF reader comes with ROADMAP "
-                "Queue 1 #3 (host substrate and trajectory I/O)")
-        from amof_tpu_torch.io.xyz import read_xyz
+            from amof_tpu_torch.io.cif import read_cif
 
-        frame = read_xyz(frame_or_file, 0)
+            frame = read_cif(frame_or_file)
+        else:
+            from amof_tpu_torch.io.xyz import read_xyz
+
+            frame = read_xyz(frame_or_file, 0)
     # translate pysimm kwarg names
     kwargs.pop("ha", None)  # grid resolution already 'high accuracy'
     kwargs.pop("atype_name", None)

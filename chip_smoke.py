@@ -121,6 +121,29 @@ the windowed pass through kernel #4, forced there; columns equal); phase 5
 compares every entry point's columns on the card and on the CPU on a
 2048-atom excerpt.
 
+Trajectory I/O and ring statistics (``trajectory``, ``ring``; no
+kernel of the nine is on this path, the BFS is ``torch.matmul``): phase
+2 prints ``g++ --version`` and the g++ build of the ring engine
+(``amof_tpu_torch/native/ringsearch.cpp``) beside nvcc's time; phase 4
+(``io_phase``) writes the first 32 bench frames as a LAMMPS ``dump
+custom`` and as a CP2K xyz + ``.cell`` pair (%.9g), reads them back with
+``read_traj`` (format sniffed) and ``read_cp2k_traj`` (arrays equal the
+in-memory float32 frames, ``rdf.rdf_columns`` equal with kernel #1
+launching, read wall and MB/s printed), then (``ring_phase``) runs
+``Ring.census`` with {"Fr-Zn": 3.8} and max_search_depth 32 on the 4x4x4
+decorated diamond net (1536 nodes, 4 frames of 0.1 A jitter): RC(12)
+1024 and PN(12) 1 on every frame, final depth 16, no supercell census,
+and the census's own split a frame (``ring.core.SPLIT``: guard, bond
+graph, BFS and copy, BFS device time by CUDA events, C++ census) with
+the peak device memory; side runs: ``Ring.census`` of one 8x8x8 frame
+(12288 nodes, RC(12) 8192, the same checks and split), the spanning-ring
+frame (the supercell census engages) and ``example_reduced.xyz`` with
+its stored cutoff; phase 5 (``ring_cpu_parity``) holds the device BFS
+against scipy's ``shortest_path`` on net frame 0, the census on the card
+against the CPU (arrays and every report key) on three frames, and
+``zeopp.network`` on a .cif written by ``io.cif.write_cif`` against
+``network`` on the frame read back from it.
+
 The second-to-last line is a JSON object describing the kernels (with
 each one's bound: the larger of the bytes it must move over 3.35 TB/s and
 its f32 operations over 67 TFLOP/s, H100 SXM data sheet); the last
@@ -2163,6 +2186,388 @@ def per_frame_cpu_parity(dev):
 
 
 # --------------------------------------------------------------------------
+# Trajectory I/O and ring statistics
+# --------------------------------------------------------------------------
+
+RING_DEPTH = 32  # max_search_depth; the adaptive loop stops at 16 here
+RING_NET = dict(reps=4, n_frames=4, sigma=0.1, seed=0)  # 1536 nodes
+RING_NET_LARGE_REPS = 8  # 12288 nodes: the dense BFS at 604 MB a matrix
+IO_FRAMES = 32
+
+
+def ring_fixtures():
+    """``tests/ring_fixtures.py``, loaded by path: the decorated diamond
+    net (``RING_CUTOFFS``, ``net_frames``), the spanning-ring frame and
+    the scipy BFS oracle, the same inputs the CPU tests use."""
+    import importlib.util
+
+    if "ring_fixtures" not in sys.modules:
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "ring_fixtures.py")
+        spec = importlib.util.spec_from_file_location("ring_fixtures", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        sys.modules["ring_fixtures"] = module
+    return sys.modules["ring_fixtures"]
+
+
+def ring_engine_build(card):
+    """Phase 2: g++'s version and the build of the ring engine
+    (``amof_tpu_torch/native/ringsearch.cpp``) beside nvcc's time."""
+    from amof_tpu_torch import _build, native
+
+    version = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+    check(version, "g++ --version printed nothing")
+    t0 = time.perf_counter()
+    native.get_lib()
+    load_s = time.perf_counter() - t0
+    gxx_s = native.build_seconds
+    say(f"ring engine: {version[0]}; "
+        + (f"g++ ran: {gxx_s:.2f} s" if gxx_s is not None
+           else "g++ did not run: loaded an existing build")
+        + f" (load {load_s:.2f} s; {native.library_path().name}); nvcc "
+        + (f"{_build.build_seconds:.1f} s" if _build.build_seconds
+           else "did not run") + f" on {card}")
+    return {"gxx": version[0], "gxx_s": gxx_s, "nvcc_s": _build.build_seconds}
+
+
+def write_lammps_dump(path, batch):
+    """``dump custom`` with ``id type x y z``, %.9g (exact for float32);
+    types numbered in order of first appearance. Returns the specorder."""
+    import numpy as np
+
+    from amof_tpu_torch.data import elements
+
+    zs = list(dict.fromkeys(batch.species.tolist()))
+    index = {z: t for t, z in enumerate(zs)}
+    types = np.array([index[z] for z in batch.species.tolist()])
+    ids = np.arange(1, batch.num_atoms + 1)
+    with open(path, "w") as f:
+        for k in range(batch.num_frames):
+            lo_hi = "".join(f"0 {float(batch.cell[k, a, a]):.9g}\n"
+                            for a in range(3))
+            f.write(f"ITEM: TIMESTEP\n{int(batch.step[k])}\n"
+                    f"ITEM: NUMBER OF ATOMS\n{batch.num_atoms}\n"
+                    f"ITEM: BOX BOUNDS pp pp pp\n{lo_hi}"
+                    "ITEM: ATOMS id type x y z\n")
+            rows = np.column_stack([ids, types + 1,
+                                    batch.positions[k].astype(np.float64)])
+            np.savetxt(f, rows, fmt=["%d", "%d", "%.9g", "%.9g", "%.9g"])
+    return [elements.chemical_symbols[z] for z in zs]
+
+
+def write_cp2k_files(xyz_path, cell_path, batch):
+    """A CP2K position file (xyz frames with the ``i = ..`` comment) and
+    its ``.cell`` file, %.9g."""
+    import numpy as np
+
+    from amof_tpu_torch.data import elements
+
+    symbols = np.array([elements.chemical_symbols[z]
+                        for z in batch.species.tolist()])
+    with open(xyz_path, "w") as f, open(cell_path, "w") as c:
+        c.write("#   Step   Time [fs]       Ax [Angstrom]       Ay [Angstrom]"
+                "       Az [Angstrom]       Bx [Angstrom]       By [Angstrom]"
+                "       Bz [Angstrom]       Cx [Angstrom]       Cy [Angstrom]"
+                "       Cz [Angstrom]      Volume [Angstrom^3]\n")
+        for k in range(batch.num_frames):
+            step = int(batch.step[k])
+            f.write(f"{batch.num_atoms}\n i = {step:8d}, time = "
+                    f"{0.5 * step:12.3f}, E = -1.0\n")
+            pos = batch.positions[k].astype(np.float64)
+            np.savetxt(f, np.column_stack([symbols, *(
+                [f"{v:.9g}" for v in pos[:, a]] for a in range(3))]),
+                fmt="%s")
+            cell = batch.cell[k].astype(np.float64)
+            c.write(f"{step:8d} {0.5 * step:12.3f} "
+                    + " ".join(f"{v:.9g}" for v in cell.ravel())
+                    + f" {abs(np.linalg.det(cell)):.9g}\n")
+
+
+def io_phase(batch, dev, card):
+    """Phase 4, trajectory I/O: the first IO_FRAMES bench frames written
+    as a LAMMPS ``dump custom`` and as a CP2K xyz + .cell pair, read back
+    with ``trajectory.read_traj`` (format sniffed) and
+    ``trajectory.read_cp2k_traj``. Positions, numbers and cells must
+    equal the in-memory frames exactly (float32), and ``rdf.rdf_columns``
+    on each read trajectory must equal the in-memory run, kernel #1
+    launching (counters zeroed before, read after). Returns rows."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from amof_tpu_torch import rdf, trajectory
+
+    part = excerpt(batch, IO_FRAMES)
+    ref_cols = rdf.rdf_columns(part, dr=BENCH["dr"], device=dev)
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = os.path.join(tmp, "bench.lammpstrj")
+        specorder = write_lammps_dump(dump, part)
+        xyz = os.path.join(tmp, "bench-pos-1.xyz")
+        cellf = os.path.join(tmp, "bench-1.cell")
+        write_cp2k_files(xyz, cellf, part)
+        for label, read, size in (
+                ("lammps dump custom (read_traj, sniffed)",
+                 lambda: trajectory.read_traj(dump, specorder=specorder)
+                 .frames, os.path.getsize(dump)),
+                ("cp2k xyz + .cell (read_cp2k_traj)",
+                 lambda: trajectory.read_cp2k_traj(xyz, cellf),
+                 os.path.getsize(xyz) + os.path.getsize(cellf))):
+            t0 = time.perf_counter()
+            frames = read()
+            wall = time.perf_counter() - t0
+            check(len(frames) == IO_FRAMES, f"{label}: {len(frames)} frames")
+            back = trajectory.Trajectory(frames).to_batch()
+            for key in ("positions", "cell", "species"):
+                got, want = getattr(back, key), getattr(part, key)
+                check(got.dtype == want.dtype and np.array_equal(got, want),
+                      f"{label}: {key} differ from the in-memory frames")
+            reset_launches()
+            cols = rdf.rdf_columns(back, dr=BENCH["dr"], device=dev)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            check(launches["rdf_counts_blocked"] > 0,
+                  f"{label}: kernel rdf_counts_blocked not launched")
+            check(list(cols) == list(ref_cols) and all(
+                np.array_equal(cols[k], ref_cols[k]) for k in cols),
+                f"{label}: rdf_columns differ from the in-memory run")
+            mb = size / 1e6
+            rows.append({"format": label, "s": wall, "MB": mb,
+                         "MB_per_s": mb / wall,
+                         "rdf_launches": launches["rdf_counts_blocked"]})
+            say(f"io {label}: {IO_FRAMES} frames x {part.num_atoms} atoms, "
+                f"{mb:.1f} MB read in {wall:.3f} s = {mb / wall:.1f} MB/s; "
+                f"arrays equal, rdf_columns equal ({launches} launches) on "
+                f"{card}")
+    return rows
+
+
+def census_run(frames, cutoffs, dev, depth=RING_DEPTH):
+    """``Ring.census`` of ``frames``, synced, with the kernel counters,
+    ``ring.core.SPLIT`` and the peak device memory reset just before it
+    and read just after. Returns (labeled array, reports, wall s, ms a
+    frame by piece of the census, peak GiB, kernel launches)."""
+    import torch
+
+    from amof_tpu_torch.ring import Ring, core
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    core.reset_split()
+    t0 = time.perf_counter()
+    stacked, reports = Ring(max_search_depth=depth).census(
+        frames, [cutoffs] * len(frames), list(range(len(frames))),
+        device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_launches().items() if v}
+    split = {k: 1e3 * v / len(frames) for k, v in core.SPLIT.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return stacked, reports, wall, split, peak, launches
+
+
+def ring_checked(label, stacked, reports, n_nodes, rc12, depth=16,
+                 supercell=False, undiscovered=0):
+    """RC(12), PN(12), the final depth, the supercell flag and the count
+    of potentially undiscovered rings (None: not checked) of every frame
+    of one census."""
+    import numpy as np
+
+    check(stacked is not None, f"ring {label}: no frame kept")
+    sizes = list(stacked.get_coord("ring_size"))
+    for k, rep in enumerate(reports):
+        check(rep["Final search_depth"] == depth,
+              f"ring {label} frame {k}: final depth "
+              f"{rep['Final search_depth']}")
+        check(rep["Supercell census"] == supercell,
+              f"ring {label} frame {k}: supercell census "
+              f"{rep['Supercell census']}")
+        check(undiscovered is None
+              or rep["Potentially undiscovered rings"] == undiscovered,
+              f"ring {label} frame {k}: potentially undiscovered rings "
+              f"{rep['Potentially undiscovered rings']}")
+        if rc12 is not None:
+            rc = np.asarray(stacked.sel(ring_var="RC"))[k]
+            pn = np.asarray(stacked.sel(ring_var="PN"))[k]
+            check(12 in sizes and rc[sizes.index(12)] == rc12
+                  and pn[sizes.index(12)] == 1.0,
+                  f"ring {label} frame {k}: RC(12) "
+                  f"{rc[sizes.index(12)] if 12 in sizes else None}, "
+                  f"expected {rc12} with PN(12) 1 ({n_nodes} nodes)")
+
+
+def reduced_example():
+    """``example_reduced.xyz``'s frame and the cutoff its
+    ``.report_search.csv`` stores (read with the csv module: the card has
+    no pandas)."""
+    import ast
+    import csv
+
+    from amof_tpu_torch import trajectory
+
+    frames = trajectory.read_traj("example_reduced.xyz").frames
+    with open("example_reduced.report_search.csv") as f:
+        row = next(csv.DictReader(f))
+    return frames[0], ast.literal_eval(row["nb_set_and_cutoff"])
+
+
+def ring_phase(dev, card):
+    """Phase 4, ring statistics: ``Ring.census`` (the pandas-free half of
+    ``compute_ring``) with {"Fr-Zn": 3.8} and max_search_depth 32 on the
+    4x4x4 decorated diamond net (1536 nodes, 55.43 A, 4 frames of 0.1 A
+    jitter from seed 0): RC(12) = 1024 and PN(12) = 1 on every frame,
+    final depth 16, no supercell census, with the census's own split a
+    frame (``ring.core.SPLIT``). Side runs: ``Ring.census`` of one 8x8x8
+    frame (12288 nodes, RC(12) = 8192, the same checks and split), the
+    spanning-ring frame (the 2x2x2 supercell census must engage) and
+    ``example_reduced`` with its stored cutoff. The kernel counters are
+    zeroed before and read after each net run (no kernel of the nine is
+    on this path). Returns the JSON entry."""
+    from amof_tpu_torch.core.frames import Frame
+    from amof_tpu_torch.ring import Ring
+
+    fx = ring_fixtures()
+    out = {}
+    for key, label, frames in (
+            ("net", "net 4x4x4", fx.net_frames(**RING_NET)),
+            ("net_large", "net 8x8x8", fx.net_frames(RING_NET_LARGE_REPS))):
+        n = len(frames[0])
+        stacked, reports, wall, split, peak, launches = census_run(
+            frames, fx.RING_CUTOFFS, dev)
+        ring_checked(label, stacked, reports, n, 2 * n // 3)
+        cert = reports[0]["Primitive shortcut exact up to size"]
+        out[key] = {"nodes": n, "frames": len(frames), "s": wall,
+                    "s_per_frame": wall / len(frames), "split_ms": split,
+                    "peak_gib": peak, "kernel_launches": launches,
+                    "certified": cert}
+        say(f"ring {label} ({n} nodes, box {frames[0].cell[0, 0]:.2f} A): "
+            f"{len(frames)} frames in {wall:.2f} s "
+            f"({wall / len(frames):.3f} s/frame), RC(12) {2 * n // 3} and "
+            f"PN(12) 1 on each, depth 16, certificate {cert}; kernel "
+            f"launches {launches}; split ms a frame {fmt_ms(split)}; peak "
+            f"{peak:.3f} GiB on {card}")
+        del frames, stacked
+
+    pos, numbers, cell, cutoffs = fx.spanning_ring_frame()
+    t0 = time.perf_counter()
+    stacked, reports = Ring(max_search_depth=8).census(
+        [Frame(pos, numbers, cell)], [cutoffs], [0], device=dev)
+    wall = time.perf_counter() - t0
+    ring_checked("spanning ring", stacked, reports, 8, None, depth=8,
+                 supercell=True, undiscovered=None)
+    check(list(stacked.get_coord("ring_size")) == [8]
+          and float(stacked.sel(ring_var="RC").values.ravel()[0]) == 1.0,
+          "ring spanning ring: the 8-ring was not recovered")
+    say(f"ring spanning-ring frame: supercell census engaged, RC(8) 1 "
+        f"({wall:.2f} s)")
+
+    frame, cutoffs = reduced_example()
+    t0 = time.perf_counter()
+    stacked, reports = Ring(max_search_depth=RING_DEPTH).census(
+        [frame], [cutoffs], [0], device=dev)
+    wall = time.perf_counter() - t0
+    ring_checked("example_reduced", stacked, reports, len(frame), None,
+                 supercell=True)
+    sizes = [int(s) for s in stacked.get_coord("ring_size")]
+    rc = [float(v) for v in stacked.sel(ring_var="RC").values.ravel()]
+    out["example_reduced"] = {"nodes": len(frame), "ring_sizes": sizes,
+                              "RC": rc, "s": wall}
+    say(f"ring example_reduced ({len(frame)} nodes, {cutoffs}): sizes "
+        f"{sizes}, RC {rc} ({wall:.2f} s)")
+    return out
+
+
+def fmt_ms(ms):
+    return ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+
+
+def census_equal(label, got, ref):
+    """Two ``Ring.census`` results exactly equal: the array's coordinates
+    and values, every key of every report."""
+    import numpy as np
+
+    (ga, gr), (ra, rr) = got, ref
+    check((ga is None) == (ra is None), f"ring {label}: card != CPU (kept)")
+    if ga is not None:
+        for dim in ra.dims:
+            check(np.array_equal(ga.get_coord(dim), ra.get_coord(dim)),
+                  f"ring {label}: card != CPU ({dim})")
+        check(np.array_equal(np.asarray(ga), np.asarray(ra)),
+              f"ring {label}: card != CPU (RC, PN, Pmax, Pmin)")
+    check(gr == rr, f"ring {label}: card != CPU reports {gr} vs {rr}")
+
+
+def ring_cpu_parity(dev):
+    """Phase 5, rings: the device BFS on frame 0 of the 4x4x4 net equals
+    the scipy oracle; ``Ring.census`` on the card equals it on the CPU
+    for that frame, the spanning-ring frame and ``example_reduced``;
+    ``zeopp.network`` on a .cif written by ``io.cif.write_cif`` (the
+    2048-atom excerpt, 0.5 A) equals ``network`` on the frame read back
+    from it (the in-memory frame's difference is printed)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from amof_tpu_torch import atom
+    from amof_tpu_torch.core.frames import Frame
+    from amof_tpu_torch.io.cif import read_cif, write_cif
+    from amof_tpu_torch.ops import graph_kernel
+    from amof_tpu_torch.pore import zeopp
+    from amof_tpu_torch.ring import Ring, core
+
+    fx = ring_fixtures()
+    t0 = time.perf_counter()
+    frame = fx.net_frames(RING_NET["reps"], 1, RING_NET["sigma"],
+                          RING_NET["seed"])[0]
+    adjacency, _ = core._frame_adjacency(
+        frame, atom.format_cutoff(fx.RING_CUTOFFS, sort_pair=True))
+    adj = core.adjacency_matrix(adjacency)
+    got = graph_kernel.to_host_uint16(graph_kernel.bfs_distances(
+        torch.from_numpy(adj).to(dev), 16))
+    ref = fx.scipy_bfs(adj, 16)
+    diff = int((got != ref).sum())
+    check(diff == 0, f"device BFS != scipy oracle ({diff} entries)")
+    say(f"ring BFS on the card == scipy shortest_path on net frame 0 "
+        f"({len(adj)} nodes, depth 16, {int((ref < 0xFFFF).sum())} "
+        f"reached pairs)")
+
+    pos, numbers, cell, span_cut = fx.spanning_ring_frame()
+    reduced, reduced_cut = reduced_example()
+    for label, frm, cut, depth in (
+            ("net frame 0", frame, fx.RING_CUTOFFS, RING_DEPTH),
+            ("spanning ring", Frame(pos, numbers, cell), span_cut, 8),
+            ("example_reduced", reduced, reduced_cut, RING_DEPTH)):
+        census_equal(label, *(Ring(max_search_depth=depth).census(
+            [frm], [cut], [0], device=d) for d in (dev, "cpu")))
+    say("ring census card == CPU (arrays and every report key) on net "
+        "frame 0, the spanning-ring frame and example_reduced")
+
+    small = per_frame_excerpt().frame(0)
+    kw = dict(sa=True, vol=True, resolution=EXCERPT_RES, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "excerpt.cif")
+        write_cif(path, small)
+        from_cif = zeopp.network(path, **kw)
+        back = read_cif(path)
+    on_frame = zeopp.network(back, **kw)
+    check(from_cif == on_frame, f"network(.cif) {from_cif} != network("
+          f"read_cif frame) {on_frame}")
+    # the CIF keeps six decimals of each fractional coordinate, so the
+    # frame read back is not the in-memory one: printed, not checked
+    original = zeopp.network(small, **kw)
+    worst = max(abs(from_cif[k] - original[k]) / max(abs(original[k]), 1e-30)
+                for k in original)
+    say(f"network(.cif) == network(frame read from it); vs the in-memory "
+        f"frame max rel {worst:.2e} ({len(small)} atoms, {EXCERPT_RES} A; "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
+# --------------------------------------------------------------------------
 # The runtime warmup (kernel #9) and the cold start
 # --------------------------------------------------------------------------
 
@@ -2659,6 +3064,7 @@ def main():
             if "Used" in line:
                 say(f"ptxas: {line.strip()}")
     cold = cold_start(card)
+    ring_build = ring_engine_build(card)
 
     # the workload
     t0 = time.perf_counter()
@@ -2748,11 +3154,16 @@ def main():
                                                dev, card)
     cn_times = cn_passes(batch, dev, card)
 
+    # 4, trajectory I/O and ring statistics, each run counted on its own
+    io_rows = io_phase(batch, dev, card)
+    ring_out = ring_phase(dev, card)
+
     # 5. correctness against the plain path on the CPU
     cpu_parity(batch)
     pore_cpu_parity(dev)
     per_frame_cpu_parity(dev)
     entry_cpu_parity(dev)
+    ring_cpu_parity(dev)
 
     # 6. times
     runs = []
@@ -2822,6 +3233,8 @@ def main():
                       "entry_point_s": entry_walls, "cn_passes": cn_times,
                       "per_frame_pore": per_frame,
                       "cold_start": cold,
+                      "io": io_rows, "ring": ring_out,
+                      "ring_engine": ring_build,
                       "launch_path_us": host_us, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``amof_tpu_torch`` (nor
-``chip_smoke.py``) imports jax or the JAX package, and every module (the
+``chip_smoke.py`` and the ``tests/ring_fixtures.py`` it loads) imports
+jax or the JAX package, and every module (the
 kernel wrappers included) imports on a machine with no nvcc, no triton
 and no GPU, building nothing.
 
@@ -33,7 +34,8 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
-                         + [PKG.parent / "chip_smoke.py"],
+                         + [PKG.parent / "chip_smoke.py",
+                            PKG.parent / "tests" / "ring_fixtures.py"],
                          ids=lambda p: str(p.relative_to(PKG.parent)))
 def test_no_jax_or_amof_tpu_import(path):
     bad = [(root, line) for root, line in _imported_roots(path)
@@ -61,8 +63,23 @@ def test_package_has_the_slice_modules():
                  "amof_tpu_torch.bad",
                  "amof_tpu_torch.msd",
                  "amof_tpu_torch.labeled",
-                 "amof_tpu_torch.warmup"):
+                 "amof_tpu_torch.warmup",
+                 "amof_tpu_torch.trajectory",
+                 "amof_tpu_torch.atom",
+                 "amof_tpu_torch.symbols",
+                 "amof_tpu_torch.io.lammps",
+                 "amof_tpu_torch.io.cp2k",
+                 "amof_tpu_torch.io.vasp",
+                 "amof_tpu_torch.io.cif",
+                 "amof_tpu_torch.files.operation",
+                 "amof_tpu_torch.ops.neighbors_host",
+                 "amof_tpu_torch.ops.graph_kernel",
+                 "amof_tpu_torch.native.__init__",
+                 "amof_tpu_torch.ring.guard",
+                 "amof_tpu_torch.ring.core",
+                 "amof_tpu_torch.pore.pysimmzeopp"):
         assert name in MODULES
+    assert (PKG / "native" / "ringsearch.cpp").exists()
     from amof_tpu_torch import _build
 
     for src in ("rdf_hist.cu", "window_table.cu", "void_masks.cu",
@@ -80,6 +97,8 @@ def test_every_module_imports_without_a_toolchain(tmp_path):
         "for m in mods: importlib.import_module(m)\n"
         "from amof_tpu_torch import _build\n"
         "assert _build._lib is None, 'library loaded at import'\n"
+        "from amof_tpu_torch import native\n"
+        "assert native._LIB is None, 'ring engine loaded at import'\n"
         "assert 'triton' not in sys.modules\n"
         "print('imported', len(mods))\n"
     )

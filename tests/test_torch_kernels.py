@@ -950,3 +950,71 @@ def test_pore_kernels_multi_pass_staging(cuda):
     ref = grid_kernel.surface_valid_columns(*sv)
     assert not bool(ref[5]) and 0 < int(ref[0].sum()) < ref[0].numel()
     assert_same(got, ref)
+
+
+# --------------------------------------------------------------------------
+# The ring path's device stage: the all-pairs BFS (torch.matmul, no
+# hand-written kernel) against a scipy oracle, and the census on the card
+# against the CPU. The decorated diamond net is ring_fixtures.py's.
+# --------------------------------------------------------------------------
+
+def net_adjacency(reps):
+    from ring_fixtures import RING_CUTOFFS, net_frames
+
+    from amof_tpu_torch import atom
+    from amof_tpu_torch.ring import core
+
+    frame = net_frames(reps)[0]
+    adjacency, _ = core._frame_adjacency(
+        frame, atom.format_cutoff(RING_CUTOFFS, sort_pair=True))
+    return frame, core.adjacency_matrix(adjacency)
+
+
+def random_adjacency(n, degree, seed):
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((n, n), bool)
+    u = rng.integers(0, n, n * degree // 2)
+    v = rng.integers(0, n, n * degree // 2)
+    adj[u, v] = adj[v, u] = True
+    np.fill_diagonal(adj, False)
+    return adj
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,depth", [("net 4x4x4", 16), ("net 4x4x4", 32),
+                                        ("random 4096", 12)])
+def test_bfs_distances_match_scipy_oracle(cuda, case, depth):
+    from ring_fixtures import scipy_bfs
+
+    from amof_tpu_torch.ops import graph_kernel
+
+    adj = (net_adjacency(4)[1] if case.startswith("net")
+           else random_adjacency(4096, 3, 5))
+    assert len(adj) in (1536, 4096)
+    dist = graph_kernel.bfs_distances(torch.from_numpy(adj).to(cuda), depth)
+    assert dist.device.type == "cuda" and dist.dtype == torch.int32
+    got = graph_kernel.to_host_uint16(dist)
+    ref = scipy_bfs(adj, depth)
+    assert int((ref < graph_kernel.UNREACHED).sum()) > len(adj)
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_ring_census_card_equals_cpu_on_3x3x3_net(cuda):
+    from ring_fixtures import RING_CUTOFFS
+
+    from amof_tpu_torch.ring import Ring
+
+    frame, adj = net_adjacency(3)
+    assert len(frame) == 648
+    card = Ring(max_search_depth=24).census([frame], [RING_CUTOFFS], [0],
+                                            device=cuda)
+    cpu = Ring(max_search_depth=24).census([frame], [RING_CUTOFFS], [0],
+                                           device="cpu")
+    for dim in cpu[0].dims:
+        np.testing.assert_array_equal(card[0].get_coord(dim),
+                                      cpu[0].get_coord(dim))
+    np.testing.assert_array_equal(np.asarray(card[0]), np.asarray(cpu[0]))
+    assert card[1] == cpu[1]
+    assert np.asarray(card[0].sel(ring_var="RC")).ravel().tolist() == [432.0]
+    assert not card[1][0]["Supercell census"]
