@@ -31,9 +31,10 @@ import pathlib
 import shutil
 import subprocess
 import threading
-import time
 
 import torch
+
+from amof_tpu_torch import tracing
 
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -88,7 +89,6 @@ class KernelError(RuntimeError):
 _lock = threading.RLock()
 _lib = None
 _error = None  # the exception of a failed library(), raised again
-build_seconds = None  # wall time of the last build (None: loaded as-is)
 
 
 def _nvcc() -> str:
@@ -122,7 +122,6 @@ def build() -> pathlib.Path:
 
 
 def _build() -> pathlib.Path:
-    global build_seconds
     out = library_path()
     if out.exists():
         return out
@@ -131,7 +130,21 @@ def _build() -> pathlib.Path:
     who = f"{os.getpid()}.{threading.get_ident()}"
     objs = [BUILD_DIR / f"{out.stem}.{who}.{pathlib.Path(s).stem}.o"
             for s in SOURCES]
-    t0 = time.perf_counter()
+    tmp = out.with_suffix(f".{who}.tmp")
+    with tracing.span("build.nvcc"):
+        logs, failed = _compile_and_link(nvcc, objs, tmp)
+    (BUILD_DIR / "ptxas.log").write_text("\n".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise KernelError("nvcc failed: " + "\n".join(failed))
+    os.replace(tmp, out)  # atomic: no process loads a half-written file
+    return out
+
+
+def _compile_and_link(nvcc, objs, tmp):
+    """Every source in its own nvcc process, all at once, then the link
+    into ``tmp``; returns (the compiler's logs, the failures)."""
     procs = [
         subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
                           str(CSRC / src)],
@@ -145,7 +158,6 @@ def _build() -> pathlib.Path:
         logs.append(f"== {src}\n{so}{se}")
         if proc.returncode != 0:
             failed.append(f"{src} ({proc.returncode}):\n{se[-3000:]}")
-    tmp = out.with_suffix(f".{who}.tmp")
     if not failed:
         link = subprocess.run(
             [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
@@ -154,14 +166,7 @@ def _build() -> pathlib.Path:
         if link.returncode != 0:
             failed.append(f"link ({link.returncode}):\n"
                           f"{link.stderr[-3000:]}")
-    build_seconds = time.perf_counter() - t0
-    (BUILD_DIR / "ptxas.log").write_text("\n".join(logs))
-    for obj in objs:
-        obj.unlink(missing_ok=True)
-    if failed:
-        raise KernelError("nvcc failed: " + "\n".join(failed))
-    os.replace(tmp, out)  # atomic: no process loads a half-written file
-    return out
+    return logs, failed
 
 
 def _load(path: pathlib.Path) -> ctypes.CDLL:
@@ -180,7 +185,8 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call; a failed build or
     load raises again on every later call). Once loaded it is returned
     without taking the lock: ``_lib`` is set once, after the load, and
-    never cleared."""
+    never cleared. The first load is the span ``build.library``, its
+    nvcc run (if any) ``build.nvcc``."""
     global _lib, _error
     lib = _lib
     if lib is not None:
@@ -190,7 +196,8 @@ def library() -> ctypes.CDLL:
             raise _error
         if _lib is None:
             try:
-                _lib = _load(build())
+                with tracing.span("build.library"):
+                    _lib = _load(build())
             except KernelError as exc:
                 _error = exc
                 raise

@@ -31,10 +31,11 @@ import os
 import pathlib
 import subprocess
 import threading
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from amof_tpu_torch import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -44,7 +45,6 @@ CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _lock = threading.Lock()
 _LIB = None
 _ERROR = None  # the NativeBuildError of a failed build, raised again
-build_seconds = None  # wall time of the last g++ run (None: loaded as-is)
 
 
 class NativeBuildError(RuntimeError):
@@ -63,7 +63,6 @@ def library_path() -> pathlib.Path:
 
 
 def _compile() -> pathlib.Path:
-    global build_seconds
     out = library_path()
     if out.exists():
         return out
@@ -71,16 +70,15 @@ def _compile() -> pathlib.Path:
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = ["g++", *CXX_FLAGS, str(SOURCE), "-o", str(tmp)]
     logger.info("building native ring engine: %s", " ".join(cmd))
-    t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=300)
+        with tracing.span("build.gxx"):
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=300)
     except (subprocess.SubprocessError, OSError) as exc:
         tmp.unlink(missing_ok=True)
         raise NativeBuildError(
             f"building the ring engine failed: {' '.join(cmd)}: {exc}"
         ) from exc
-    build_seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise NativeBuildError(

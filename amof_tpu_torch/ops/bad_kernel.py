@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from amof_tpu_torch import tracing
 from amof_tpu_torch.ops import slab_table
 from amof_tpu_torch.ops.pair_engine import (
     frame_cn_counts,
@@ -74,36 +75,38 @@ def frame_bad_counts(positions, cell, species_idx, cutoff_matrix,
         raise ValueError("angle triplets need max_neighbors >= 2")
     if window is not None and chunk + 2 * window >= n:
         window = None
-    if slab is not None:
-        (nbr_pos, nbr_sp, _, flag, center_pos, center_sp,
-         *extra) = slab_table.frame_neighbor_payload_table_slab(
-            positions, cell, species_idx, cutoff_matrix, k_cap, slab,
-            emit_cn=emit_cn, inv_cell=inv_cell, emit_missed=emit_missed,
-        )
-    elif window is not None:
-        (nbr_pos, nbr_sp, _, flag, center_pos, center_sp,
-         *extra) = frame_neighbor_payload_table_sorted(
-            positions, cell, species_idx, cutoff_matrix, k_cap, chunk,
-            window, emit_cn=emit_cn, inv_cell=inv_cell,
-            emit_missed=emit_missed,
-        )
-    else:
-        nbr_pos, nbr_sp, _, flag = frame_neighbor_payload_table(
-            positions, cell, species_idx, cutoff_matrix, k_cap, chunk,
-            inv_cell=inv_cell,
-        )
-        center_pos, center_sp = positions, species_idx.to(torch.int32)
-        # the full table's CN comes from its own pair pass, exact even
-        # when a center overflows K (as in the JAX package)
-        extra = [frame_cn_counts(positions, cell, species_idx,
-                                 cutoff_matrix, n_species, chunk,
-                                 inv_cell=inv_cell)] if emit_cn else []
-        if emit_missed:
-            extra.append(torch.zeros((), dtype=torch.bool,
-                                     device=positions.device))
-    conc, any_ = angle_histograms(nbr_pos, nbr_sp, center_pos, center_sp,
-                                  cell, inv_cell, n_species, dtheta, bins,
-                                  by_cn=by_cn, out=out)
+    with tracing.span("bad.table"):
+        if slab is not None:
+            (nbr_pos, nbr_sp, _, flag, center_pos, center_sp,
+             *extra) = slab_table.frame_neighbor_payload_table_slab(
+                positions, cell, species_idx, cutoff_matrix, k_cap, slab,
+                emit_cn=emit_cn, inv_cell=inv_cell, emit_missed=emit_missed,
+            )
+        elif window is not None:
+            (nbr_pos, nbr_sp, _, flag, center_pos, center_sp,
+             *extra) = frame_neighbor_payload_table_sorted(
+                positions, cell, species_idx, cutoff_matrix, k_cap, chunk,
+                window, emit_cn=emit_cn, inv_cell=inv_cell,
+                emit_missed=emit_missed,
+            )
+        else:
+            nbr_pos, nbr_sp, _, flag = frame_neighbor_payload_table(
+                positions, cell, species_idx, cutoff_matrix, k_cap, chunk,
+                inv_cell=inv_cell,
+            )
+            center_pos, center_sp = positions, species_idx.to(torch.int32)
+            # the full table's CN comes from its own pair pass, exact even
+            # when a center overflows K (as in the JAX package)
+            extra = [frame_cn_counts(positions, cell, species_idx,
+                                     cutoff_matrix, n_species, chunk,
+                                     inv_cell=inv_cell)] if emit_cn else []
+            if emit_missed:
+                extra.append(torch.zeros((), dtype=torch.bool,
+                                         device=positions.device))
+    with tracing.span("bad.angles"):
+        conc, any_ = angle_histograms(nbr_pos, nbr_sp, center_pos,
+                                      center_sp, cell, inv_cell, n_species,
+                                      dtheta, bins, by_cn=by_cn, out=out)
     return (conc, any_, flag, *extra)
 
 

@@ -33,15 +33,13 @@ import math
 
 import torch
 
+from amof_tpu_torch import tracing
 from amof_tpu_torch.ops.pair_engine import (
     first_k_slots,
     inverse_cell,
     min_image_delta,
     squared_norm,
 )
-
-# launches of each wrapper's CUDA kernel (CPU calls do not count)
-LAUNCHES = {"window_table_slab": 0, "window_table": 0}
 
 _PLAIN_CELLS = 1 << 24  # candidate tests per plain-version batch
 
@@ -342,7 +340,7 @@ def window_table(pos_sorted, sp_sorted, cell, cutoff_matrix,
         inv_cell.data_ptr(), cutoff_matrix.data_ptr(), buf.data_ptr(), n, s,
         k, chunk, window, _build.stream_ptr(pos_sorted))
     _build.check(err, "window_table")
-    LAUNCHES["window_table"] += 1
+    tracing.count("launch.window_table")  # CPU calls do not count
     return _table_views(buf, n, k)
 
 
@@ -522,7 +520,7 @@ def window_table_slab(centers, cand, starts, qbounds, cell, cutoff_matrix,
         cutoff_matrix.data_ptr(), buf.data_ptr(), m, m2, s, k, chunk, window,
         _build.stream_ptr(centers))
     _build.check(err, "window_table_slab")
-    LAUNCHES["window_table_slab"] += 1
+    tracing.count("launch.window_table_slab")  # CPU calls do not count
     return _table_views(buf, m, k)
 
 

@@ -53,10 +53,8 @@ import functools
 import numpy as np
 import torch
 
+from amof_tpu_torch import tracing
 from amof_tpu_torch.ops.pair_engine import HALF_EPS, inverse_cell, sqrt_rn
-
-# launches of each wrapper's CUDA kernel (CPU calls do not count)
-LAUNCHES = {"rdf_counts_blocked": 0, "rdf_counts": 0}
 
 MODE_BLOCKED, MODE_SMEM_ALL, MODE_GLOBAL = 0, 1, 2
 SMEM_LIMIT = 220 * 1024  # dynamic shared memory one block may opt into
@@ -307,7 +305,7 @@ def _launch(name, mode, positions, cell, species_idx, dr, n_species, bins,
         err = lib.rdf_hist_launch(*args, mode, int(bool(ortho)), queue + 8,
                                   hist, cap, out.data_ptr(), stream)
     _build.check(err, name)
-    LAUNCHES[name] += 1
+    tracing.count("launch." + name)  # CPU calls do not count
     return _symmetrize(out, n_species, bins) if mode == MODE_BLOCKED else out
 
 

@@ -19,6 +19,13 @@ is slow on a TPU). There is no mesh: the step is single-device.
 A frame whose neighbour table overflowed K (or whose window missed)
 contributes nothing to the BAD histograms in its first pass and is rerun
 at doubled capacity, so no angle is ever dropped silently.
+
+Spans and counters (``amof_tpu_torch.tracing``): ``pipeline.prepare``
+(``.layout``, ``.slab_plan``, ``.upload``), ``pipeline.step``,
+``pipeline.frame`` (``.rdf``; the table and angles as ``bad.table``,
+``bad.angles``), ``pipeline.sums``, ``pipeline.flags_read``,
+``pipeline.rerun``, ``pipeline.msd``, ``pipeline.download``; counters
+``pipeline.frames`` and the rerun tallies ``RERUNS`` (also in ``meta``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from amof_tpu_torch import tracing
 from amof_tpu_torch.bad import _enumerate_specs
 from amof_tpu_torch.cn import _cutoff_matrix_for_species, sorted_window
 from amof_tpu_torch.core.frames import as_frame_batch
@@ -40,6 +48,10 @@ from amof_tpu_torch.warmup import after_warmup, warmup
 logger = logging.getLogger(__name__)
 
 MAX_RERUN_CAPACITY = 1024  # the retry ladder's K bound
+# rerun tallies of one step (meta["reruns"]; counters "pipeline.<key>"):
+# whole-group K doublings, frame passes of the per-frame ladder, frames
+# that reached its full-table rung
+RERUNS = ("groups_escalated", "frames_rerun", "frames_full_table")
 
 
 def resolve_device(device) -> torch.device:
@@ -90,29 +102,43 @@ def _frame_pass(cfg: _Config, a: StepArgs, f: int, k_cap: int,
     """One frame: (weighted RDF f32[S,S,bins] or None, CN f32[S,S],
     BAD concrete, BAD center_any, flag bool[], window missed bool[] or
     None)."""
-    pos, cell, inv = a.positions[f], a.cells[f], a.inv_cells[f]
-    s = cfg.n_species
-    rdf = None
-    if with_rdf:
-        rdf = a.volumes[f] * pair_engine.frame_rdf_counts(
-            pos, cell, a.species_idx, cfg.dr, s, cfg.bins,
-            blocked=cfg.blocked, ortho=cfg.ortho, inv_cell=inv,
+    with tracing.span("pipeline.frame"):
+        pos, cell, inv = a.positions[f], a.cells[f], a.inv_cells[f]
+        s = cfg.n_species
+        rdf = None
+        if with_rdf:
+            with tracing.span("pipeline.frame.rdf"):
+                rdf = a.volumes[f] * pair_engine.frame_rdf_counts(
+                    pos, cell, a.species_idx, cfg.dr, s, cfg.bins,
+                    blocked=cfg.blocked, ortho=cfg.ortho, inv_cell=inv,
+                )
+        if not cfg.with_bad:
+            cn = pair_engine.frame_cn_counts(
+                pos, cell, a.species_idx, a.cutoff_matrix, s, cfg.chunk,
+                inv_cell=inv,
+            )
+            return rdf, cn, None, None, torch.zeros(
+                (), dtype=torch.bool, device=pos.device), None
+        bad_c, bad_a, flag, cn, missed = bad_kernel.frame_bad_counts(
+            pos, cell, a.species_idx, a.cutoff_matrix, s, cfg.dtheta,
+            cfg.bad_bins, k_cap, cfg.chunk,
+            window=cfg.bad_window if rung in ("slab", "window") else None,
+            emit_cn=True, slab=cfg.bad_slab if rung == "slab" else None,
+            inv_cell=inv, emit_missed=True,
         )
-    if not cfg.with_bad:
-        cn = pair_engine.frame_cn_counts(
-            pos, cell, a.species_idx, a.cutoff_matrix, s, cfg.chunk,
-            inv_cell=inv,
-        )
-        return rdf, cn, None, None, torch.zeros((), dtype=torch.bool,
-                                                device=pos.device), None
-    bad_c, bad_a, flag, cn, missed = bad_kernel.frame_bad_counts(
-        pos, cell, a.species_idx, a.cutoff_matrix, s, cfg.dtheta,
-        cfg.bad_bins, k_cap, cfg.chunk,
-        window=cfg.bad_window if rung in ("slab", "window") else None,
-        emit_cn=True, slab=cfg.bad_slab if rung == "slab" else None,
-        inv_cell=inv, emit_missed=True,
-    )
-    return rdf, cn, bad_c, bad_a, flag, missed
+        return rdf, cn, bad_c, bad_a, flag, missed
+
+
+def _count_flags(flags) -> int:
+    """Flagged frames of a group: a read that waits for the device."""
+    with tracing.span("pipeline.flags_read"):
+        return int(flags.sum())
+
+
+def _tally(reruns: dict, key: str, n: int = 1) -> None:
+    """Adds ``n`` to a step's rerun tally and to its process counter."""
+    reruns[key] += n
+    tracing.count("pipeline." + key, n)
 
 
 class _Sums:
@@ -242,91 +268,100 @@ class FusedAnalysis:
     def prepare(self, batch, device="cuda"):
         """Resolve static shapes, lay atoms out and upload them; returns
         (step_fn, args, meta). ``step_fn(*args)`` runs the step."""
+        with tracing.span("pipeline.prepare"):
+            return self._prepare(batch, device)
+
+    def _prepare(self, batch, device):
         from amof_tpu_torch.ops import slab_table
 
         dev = resolve_device(device)
         handle = warmup(device=dev)  # build + context overlap the layout
-        batch = as_frame_batch(batch)
-        species = np.asarray(batch.species)
-        unique, z_to_idx = _species_table(species)
-        n_species = len(unique)
+        with tracing.span("pipeline.prepare.layout"):
+            batch = as_frame_batch(batch)
+            species = np.asarray(batch.species)
+            unique, z_to_idx = _species_table(species)
+            n_species = len(unique)
 
-        cells = np.asarray(batch.cell, dtype=np.float32)
-        lengths = np.linalg.norm(cells.astype(np.float64), axis=2)
-        rmax = self.rmax or float(lengths.min()) / 2
-        bins = int(rmax // self.dr)
+            cells = np.asarray(batch.cell, dtype=np.float32)
+            lengths = np.linalg.norm(cells.astype(np.float64), axis=2)
+            rmax = self.rmax or float(lengths.min()) / 2
+            bins = int(rmax // self.dr)
 
-        # species-blocked layout upgrades RDF to kernel #1 (histograms are
-        # permutation-invariant, so BAD/CN/MSD take the re-layout
-        # unchanged); skipped when per-species padding to 256-atom tiles
-        # would inflate the atom count past 1.5x
-        block = int(np.lcm(256, self.chunk))
-        perm, sp_l = rdf_kernel.species_block_layout(
-            z_to_idx[species], block=block, total_multiple=block
-        )
-        blocked = len(sp_l) <= 1.5 * len(species)
-        if blocked:
-            positions = rdf_kernel.apply_atom_layout(
-                np.asarray(batch.positions, np.float32), perm)
-            species_idx = sp_l.astype(np.int32)
-        else:
-            positions, species_idx = pair_engine.pad_atoms(
-                np.asarray(batch.positions, np.float32),
-                z_to_idx[species].astype(np.int32), self.chunk,
+            # species-blocked layout upgrades RDF to kernel #1 (histograms
+            # are permutation-invariant, so BAD/CN/MSD take the re-layout
+            # unchanged); skipped when per-species padding to 256-atom
+            # tiles would inflate the atom count past 1.5x
+            block = int(np.lcm(256, self.chunk))
+            perm, sp_l = rdf_kernel.species_block_layout(
+                z_to_idx[species], block=block, total_multiple=block
             )
+            blocked = len(sp_l) <= 1.5 * len(species)
+            if blocked:
+                positions = rdf_kernel.apply_atom_layout(
+                    np.asarray(batch.positions, np.float32), perm)
+                species_idx = sp_l.astype(np.int32)
+            else:
+                positions, species_idx = pair_engine.pad_atoms(
+                    np.asarray(batch.positions, np.float32),
+                    z_to_idx[species].astype(np.int32), self.chunk,
+                )
 
-        cutoff_matrix = _cutoff_matrix_for_species(
-            self.nb_set_and_cutoff, unique, z_to_idx
-        )
-        pairs, bad_names = _enumerate_specs(self.nb_set_and_cutoff, unique)
-        bad_specs = tuple(
-            (
-                -1 if sa == "X" else int(z_to_idx[sa]),
-                -1 if sb == "X" else int(z_to_idx[sb]),
+            cutoff_matrix = _cutoff_matrix_for_species(
+                self.nb_set_and_cutoff, unique, z_to_idx
             )
-            for sa, sb in pairs
-        )
-        bad_bins = int(180 // self.dtheta) + 1
-        # per-slot masses (pads may be interleaved by the blocked layout)
-        z_slot = np.asarray(unique)[np.maximum(species_idx, 0)]
-        masses = np.where(
-            species_idx >= 0, elements.mass_of(z_slot), 0.0
-        ).astype(np.float32)
-        volumes = np.abs(np.linalg.det(cells.astype(np.float64))).astype(
-            np.float32)
+            pairs, bad_names = _enumerate_specs(self.nb_set_and_cutoff,
+                                                unique)
+            bad_specs = tuple(
+                (
+                    -1 if sa == "X" else int(z_to_idx[sa]),
+                    -1 if sb == "X" else int(z_to_idx[sb]),
+                )
+                for sa, sb in pairs
+            )
+            bad_bins = int(180 // self.dtheta) + 1
+            # per-slot masses (pads may be interleaved by the blocked
+            # layout)
+            z_slot = np.asarray(unique)[np.maximum(species_idx, 0)]
+            masses = np.where(
+                species_idx >= 0, elements.mass_of(z_slot), 0.0
+            ).astype(np.float32)
+            volumes = np.abs(np.linalg.det(cells.astype(np.float64))).astype(
+                np.float32)
 
-        n_pad = positions.shape[1]
-        bad_window = self.bad_window
-        if bad_window == "auto":
-            # pad rows carry uniformly-spread sort keys, so the window
-            # scales with the PADDED atom count
-            bad_window = sorted_window(cells, float(cutoff_matrix.max()),
-                                       n_pad, self.chunk)
-        if bad_window is not None and self.chunk + 2 * bad_window >= n_pad:
-            bad_window = None
+            n_pad = positions.shape[1]
+            bad_window = self.bad_window
+            if bad_window == "auto":
+                # pad rows carry uniformly-spread sort keys, so the window
+                # scales with the PADDED atom count
+                bad_window = sorted_window(cells, float(cutoff_matrix.max()),
+                                           n_pad, self.chunk)
+            if bad_window is not None and self.chunk + 2 * bad_window >= n_pad:
+                bad_window = None
 
         # 2-level (slab, y) windows for the BAD/CN table: ~3x fewer
         # candidate tests than the 1-level x-window
         bad_slab = None
         if self.with_bad and bad_window is not None:
-            bad_slab = slab_table.slab_plan(
-                cells, float(cutoff_matrix.max()), n_pad,
-                positions=positions, species_idx=species_idx,
-            )
+            with tracing.span("pipeline.prepare.slab_plan"):
+                bad_slab = slab_table.slab_plan(
+                    cells, float(cutoff_matrix.max()), n_pad,
+                    positions=positions, species_idx=species_idx,
+                )
 
         # diagonal-cell certificate for the RDF kernels' fast path
         ortho = bool(np.all(cells == cells * np.eye(3, dtype=cells.dtype)))
 
-        cells_t = torch.from_numpy(np.ascontiguousarray(cells))
-        args = StepArgs(
-            positions=torch.from_numpy(positions).to(dev),
-            cells=cells_t.to(dev),
-            inv_cells=pair_engine.inverse_cell(cells_t).to(dev),
-            volumes=torch.from_numpy(volumes).to(dev),
-            species_idx=torch.from_numpy(species_idx).to(dev),
-            cutoff_matrix=torch.from_numpy(cutoff_matrix).to(dev),
-            masses=torch.from_numpy(masses).to(dev),
-        )
+        with tracing.span("pipeline.prepare.upload"):
+            cells_t = torch.from_numpy(np.ascontiguousarray(cells))
+            args = StepArgs(
+                positions=torch.from_numpy(positions).to(dev),
+                cells=cells_t.to(dev),
+                inv_cells=pair_engine.inverse_cell(cells_t).to(dev),
+                volumes=torch.from_numpy(volumes).to(dev),
+                species_idx=torch.from_numpy(species_idx).to(dev),
+                cutoff_matrix=torch.from_numpy(cutoff_matrix).to(dev),
+                masses=torch.from_numpy(masses).to(dev),
+            )
         cfg = _Config(
             n_species=n_species, bins=bins, dr=float(self.dr),
             bad_bins=bad_bins, dtheta=float(self.dtheta), chunk=self.chunk,
@@ -344,7 +379,7 @@ class FusedAnalysis:
         if self.frames_per_call is not None:
             step_fn = self._make_chunked_step(cfg, meta, a_blk)
         else:
-            step_fn = self._make_step(cfg, n_pad)
+            step_fn = self._make_step(cfg, meta, n_pad)
         return after_warmup(handle, step_fn), args, meta
 
     def _finish(self, a: StepArgs, sums: _Sums, n_species: int, a_blk: int):
@@ -359,20 +394,28 @@ class FusedAnalysis:
             "bad_overflow": sums.flag,
         }
         if self.with_msd:
-            out["msd"], out["msd_species"] = _msd(
-                a, n_species, self.origin_policy, a_blk)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+            with tracing.span("pipeline.msd"):
+                out["msd"], out["msd_species"] = _msd(
+                    a, n_species, self.origin_policy, a_blk)
+        with tracing.span("pipeline.download"):
+            return {k: v.cpu().numpy() for k, v in out.items()}
 
-    def _make_step(self, cfg: _Config, n_pad: int):
+    def _make_step(self, cfg: _Config, meta, n_pad: int):
         """Monolithic step: every frame once at ``max_neighbors``."""
         def step(*args):
-            a = StepArgs(*args)
-            sums = _Sums(cfg, a.positions.shape[0], a.positions.device)
-            rung = _first_rung(cfg)
-            for f in range(a.positions.shape[0]):
-                sums.add(f, _frame_pass(cfg, a, f, self.max_neighbors,
-                                        rung=rung))
-            return self._finish(a, sums, cfg.n_species, n_pad)
+            with tracing.span("pipeline.step"):
+                a = StepArgs(*args)
+                n_frames = a.positions.shape[0]
+                tracing.count("pipeline.frames", n_frames)
+                meta["reruns"] = dict.fromkeys(RERUNS, 0)
+                sums = _Sums(cfg, n_frames, a.positions.device)
+                rung = _first_rung(cfg)
+                for f in range(n_frames):
+                    out = _frame_pass(cfg, a, f, self.max_neighbors,
+                                      rung=rung)
+                    with tracing.span("pipeline.sums"):
+                        sums.add(f, out)
+                return self._finish(a, sums, cfg.n_species, n_pad)
 
         return step
 
@@ -387,69 +430,84 @@ class FusedAnalysis:
         meta["msd_atoms_per_call"] = a_blk
 
         def chunked_step(*args):
-            a = StepArgs(*args)
-            n_frames = a.positions.shape[0]
-            target = max(self.frames_per_call, 1)
-            fpc = next(d for d in range(min(target, n_frames), 0, -1)
-                       if n_frames % d == 0)
-            meta["frames_per_call"] = fpc
-            sums = _Sums(cfg, n_frames, a.positions.device)
-            rung0 = _first_rung(cfg)
-            for i in range(0, n_frames, fpc):
-                k_cap = group_caps.get(i, self.max_neighbors)
-                outs = [_frame_pass(cfg, a, f, k_cap, rung=rung0)
-                        for f in range(i, i + fpc)]
-                for out in outs:
-                    sums.rdf += out[0].to(torch.float64)
-                if cfg.with_bad:
-                    flags = torch.stack([o[4] for o in outs])
-                    # dense overflow: this data genuinely needs a bigger
-                    # table -- escalate the whole group (BAD/CN only)
-                    while (int(flags.sum()) > fpc // 2
-                           and k_cap < MAX_RERUN_CAPACITY):
-                        k_cap *= 2
-                        group_caps[i] = k_cap
-                        outs = [_frame_pass(cfg, a, f, k_cap,
-                                            with_rdf=False, rung=rung0)
-                                for f in range(i, i + fpc)]
+            with tracing.span("pipeline.step"):
+                a = StepArgs(*args)
+                n_frames = a.positions.shape[0]
+                tracing.count("pipeline.frames", n_frames)
+                target = max(self.frames_per_call, 1)
+                fpc = next(d for d in range(min(target, n_frames), 0, -1)
+                           if n_frames % d == 0)
+                meta["frames_per_call"] = fpc
+                reruns = meta["reruns"] = dict.fromkeys(RERUNS, 0)
+                sums = _Sums(cfg, n_frames, a.positions.device)
+                rung0 = _first_rung(cfg)
+                for i in range(0, n_frames, fpc):
+                    k_cap = group_caps.get(i, self.max_neighbors)
+                    outs = [_frame_pass(cfg, a, f, k_cap, rung=rung0)
+                            for f in range(i, i + fpc)]
+                    with tracing.span("pipeline.sums"):
+                        for out in outs:
+                            sums.rdf += out[0].to(torch.float64)
+                    if cfg.with_bad:
                         flags = torch.stack([o[4] for o in outs])
-                for f, out in zip(range(i, i + fpc), outs):
-                    sums.add(f, out, with_rdf=False)
+                        # dense overflow: this data genuinely needs a
+                        # bigger table -- escalate the whole group (BAD/CN
+                        # only)
+                        while (_count_flags(flags) > fpc // 2
+                               and k_cap < MAX_RERUN_CAPACITY):
+                            k_cap *= 2
+                            group_caps[i] = k_cap
+                            _tally(reruns, "groups_escalated")
+                            outs = [_frame_pass(cfg, a, f, k_cap,
+                                                with_rdf=False, rung=rung0)
+                                    for f in range(i, i + fpc)]
+                            flags = torch.stack([o[4] for o in outs])
+                    with tracing.span("pipeline.sums"):
+                        for f, out in zip(range(i, i + fpc), outs):
+                            sums.add(f, out, with_rdf=False)
 
-            if cfg.with_bad:
-                self._rerun_flagged(cfg, a, sums)
-            return self._finish(a, sums, cfg.n_species, a_blk)
+                if cfg.with_bad:
+                    self._rerun_flagged(cfg, a, sums, reruns)
+                return self._finish(a, sums, cfg.n_species, a_blk)
 
         return chunked_step
 
-    def _rerun_flagged(self, cfg: _Config, a: StepArgs, sums: _Sums):
+    def _rerun_flagged(self, cfg: _Config, a: StepArgs, sums: _Sums,
+                       reruns: dict):
         """Flagged frames added nothing to the BAD sums, so rerunning them
         at doubled capacity and adding their histograms is exact; their
         CN rows are replaced. The slab is dropped (a slab miss is a
         property of the data); a frame whose 1-level window missed moves
-        to the full table."""
-        flagged = torch.nonzero(sums.flag).flatten().tolist()
-        rung = {f: "window" if cfg.bad_window is not None else "full"
-                for f in flagged}
-        k_re = self.max_neighbors
-        while flagged and k_re < MAX_RERUN_CAPACITY:
-            k_re *= 2
-            still = []
-            for f in flagged:
-                out = _frame_pass(cfg, a, f, k_re, with_rdf=False,
-                                  rung=rung[f])
-                if bool(out[4]):
-                    still.append(f)  # self-masked again
-                    if rung[f] == "window" and bool(out[5]):
-                        rung[f] = "full"
-                    continue
-                sums.cn[f] = out[1]
-                sums.flag[f] = False
-                sums.add_bad(out[2], out[3], out[4])
-            flagged = still
+        to the full table. Tallies its passes in ``reruns``."""
+        with tracing.span("pipeline.rerun"):
+            flagged = torch.nonzero(sums.flag).flatten().tolist()
+            first = "window" if cfg.bad_window is not None else "full"
+            rung = dict.fromkeys(flagged, first)
+            if first == "full":
+                _tally(reruns, "frames_full_table", len(flagged))
+            k_re = self.max_neighbors
+            while flagged and k_re < MAX_RERUN_CAPACITY:
+                k_re *= 2
+                still = []
+                for f in flagged:
+                    out = _frame_pass(cfg, a, f, k_re, with_rdf=False,
+                                      rung=rung[f])
+                    _tally(reruns, "frames_rerun")
+                    if bool(out[4]):
+                        still.append(f)  # self-masked again
+                        if rung[f] == "window" and bool(out[5]):
+                            rung[f] = "full"
+                            _tally(reruns, "frames_full_table")
+                        continue
+                    with tracing.span("pipeline.sums"):
+                        sums.cn[f] = out[1]
+                        sums.flag[f] = False
+                        sums.add_bad(out[2], out[3], out[4])
+                flagged = still
 
     def run(self, batch, device="cuda") -> Tuple[Dict[str, np.ndarray], dict]:
-        """Run the step; returns (outputs as numpy arrays, meta)."""
+        """Run the step; returns (outputs as numpy arrays, meta).
+        ``meta["reruns"]`` holds this call's rerun tallies (``RERUNS``)."""
         step_fn, args, meta = self.prepare(batch, device)
         out = step_fn(*args)
         if self.with_bad and out["bad_overflow"].any():

@@ -46,10 +46,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from amof_tpu_torch import tracing
 from amof_tpu_torch.ops.pair_engine import matvec3, sqrt_rn, squared_norm
-
-# launches of the flood-fill kernel (CPU calls do not count)
-LAUNCHES = {"flood_fill": 0}
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -930,7 +928,7 @@ def propagate_fixpoint(init, periodic: bool):
         init.data_ptr(), gx, gy, gz, int(bool(periodic)), ptr + 4 * n, ptr,
         _build.stream_ptr(init))
     _build.check(err, "flood_fill")
-    LAUNCHES["flood_fill"] += 1
+    tracing.count("launch.flood_fill")  # CPU calls do not count
     return buf.as_strided((gx, gy, gz), (gy * gz, gz, 1))
 
 

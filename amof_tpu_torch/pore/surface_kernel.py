@@ -34,10 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from amof_tpu_torch import tracing
 from amof_tpu_torch.pore import grid_kernel
-
-# launches of each wrapper's CUDA kernel (CPU calls do not count)
-LAUNCHES = {"void_masks_points": 0, "surface_valid_columns": 0}
 
 _F32 = torch.float32
 
@@ -106,7 +104,7 @@ def _launch_masks(lay, cell, grid, nbx, nby, window, thr_hi, thr_lo,
         hi.data_ptr(), lo.data_ptr(), 0 if fit is None else fit.data_ptr(),
         _build.stream_ptr(cell))
     _build.check(err, "void_masks_points")
-    LAUNCHES["void_masks_points"] += 1
+    tracing.count("launch.void_masks_points")  # CPU calls do not count
     return hi, lo, fit
 
 
@@ -170,7 +168,7 @@ def _launch_surface(lay, cell, inv_cell, dirs, r_probe, grid, nbx, nby,
         valid.data_ptr(), i_pt.data_ptr(), i_nu.data_ptr(),
         _build.stream_ptr(cell))
     _build.check(err, "surface_valid_columns")
-    LAUNCHES["surface_valid_columns"] += 1
+    tracing.count("launch.surface_valid_columns")  # CPU calls do not count
     return valid, i_pt, i_nu
 
 

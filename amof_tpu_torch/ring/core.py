@@ -37,8 +37,6 @@ from __future__ import annotations
 import ast
 import itertools
 import logging
-import threading
-import time
 
 import numpy as np
 import torch
@@ -46,7 +44,7 @@ import torch
 import amof_tpu_torch.atom as amatom
 import amof_tpu_torch.files.path as ampath
 import amof_tpu_torch.trajectory
-from amof_tpu_torch import labeled, native
+from amof_tpu_torch import labeled, native, tracing
 from amof_tpu_torch.core.frames import as_frames
 from amof_tpu_torch.ops import graph_kernel
 from amof_tpu_torch.ops.neighbors_host import cutoff_dict_to_matrix, neighbor_pairs
@@ -147,58 +145,43 @@ def adjacency_matrix(adjacency) -> np.ndarray:
     return adj
 
 
-# seconds by piece of the census, summed over every frame since the last
-# reset_split(): "guard" (the winding-girth certificate), "adjacency" (the
-# bond graph on the host and its copy to the device), "bfs_copy" (the BFS
-# call until its uint16 matrix is on the host), "census" (the C++
-# enumeration), and on a card "bfs_device" (the BFS's CUDA-event time)
-SPLIT = {}
-_SPLIT_LOCK = threading.Lock()
-
-
-def reset_split():
-    with _SPLIT_LOCK:
-        SPLIT.clear()
-
-
-def _add_split(**seconds):
-    with _SPLIT_LOCK:
-        for key, value in seconds.items():
-            SPLIT[key] = SPLIT.get(key, 0.0) + value
-
-
 def frame_ring_census(frame, cutoff_dict, max_size, device="cuda"):
     """Primitive-ring census of one frame: the bond graph on the host,
     the all-pairs BFS on ``device``, the enumeration in C++.
+
+    Spans (``amof_tpu_torch.tracing``): ``ring.adjacency`` (the bond graph
+    on the host and its copy to the device), ``ring.bfs_copy`` (the BFS
+    call until its uint16 matrix is on the host), ``ring.census`` (the
+    C++ enumeration), and on a card ``ring.bfs_device`` (the BFS's
+    CUDA-event time).
 
     Returns (rings, potentially_undiscovered, king_count).
     """
     from amof_tpu_torch.parallel.pipeline import resolve_device
 
     dev = resolve_device(device)
-    t0 = time.perf_counter()
-    adjacency, shifts = _frame_adjacency(frame, cutoff_dict)
     dist = None
+    with tracing.span("ring.adjacency"):
+        adjacency, shifts = _frame_adjacency(frame, cutoff_dict)
+        if len(frame) > 0:
+            adj = torch.from_numpy(adjacency_matrix(adjacency)).to(dev)
     if len(frame) > 0:
-        adj = torch.from_numpy(adjacency_matrix(adjacency)).to(dev)
-        t1 = time.perf_counter()
         on_card = dev.type == "cuda"
+        with tracing.span("ring.bfs_copy"):
+            if on_card:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            dist = graph_kernel.bfs_distances(adj, max_size)
+            if on_card:
+                end.record()
+            dist = graph_kernel.to_host_uint16(dist)  # waits for the BFS
         if on_card:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-        dist = graph_kernel.bfs_distances(adj, max_size)
-        if on_card:
-            end.record()
-        dist = graph_kernel.to_host_uint16(dist)  # waits for the BFS
-        t2 = time.perf_counter()
-        _add_split(adjacency=t1 - t0, bfs_copy=t2 - t1)
-        if on_card:
-            _add_split(bfs_device=1e-3 * start.elapsed_time(end))
-        t0 = t2
-    result = native.ring_census(adjacency, max_size, dist=dist, shifts=shifts)
-    _add_split(census=time.perf_counter() - t0)
-    return result
+            tracing.add_seconds("ring.bfs_device",
+                                1e-3 * start.elapsed_time(end))
+    with tracing.span("ring.census"):
+        return native.ring_census(adjacency, max_size, dist=dist,
+                                  shifts=shifts)
 
 
 def ring_statistics(rings, n_nodes, max_size):
@@ -389,13 +372,12 @@ class Ring:
         # from the RINGS binary unchecked, amof/ring/core.py:37-49)
         from amof_tpu_torch.ring import guard
 
-        t0 = time.perf_counter()
-        cutoff_matrix = cutoff_dict_to_matrix(cutoff_dict)
-        cert, cert_super = guard.certified_max_ring_sizes(
-            frame, cutoff_matrix, frame.get_atomic_numbers(),
-            cap=self.max_search_depth,
-        )
-        _add_split(guard=time.perf_counter() - t0)
+        with tracing.span("ring.guard"):
+            cutoff_matrix = cutoff_dict_to_matrix(cutoff_dict)
+            cert, cert_super = guard.certified_max_ring_sizes(
+                frame, cutoff_matrix, frame.get_atomic_numbers(),
+                cap=self.max_search_depth,
+            )
         census_frame, rc_div, cert_eff = frame, 1, cert
         if self.supercell_fallback and self.max_search_depth > cert:
             census_frame = guard.supercell_frame(frame, (2, 2, 2))

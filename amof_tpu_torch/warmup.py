@@ -30,12 +30,9 @@ import threading
 
 import torch
 
-from amof_tpu_torch import _build
+from amof_tpu_torch import _build, tracing
 
 SHAPE = (8, 128)
-
-# launches of the wrapper's CUDA kernel (CPU calls do not count)
-LAUNCHES = {"warmup_copy": 0}
 
 _lock = threading.Lock()
 _handle = None
@@ -64,7 +61,7 @@ def warmup_copy(src):
     err = _build.library().warmup_copy_launch(ptr, dst.data_ptr(), n,
                                               _build.stream_ptr(src))
     _build.check(err, "warmup_copy")
-    LAUNCHES["warmup_copy"] += 1
+    tracing.count("launch.warmup_copy")  # CPU calls do not count
     return dst
 
 
@@ -112,12 +109,14 @@ def _first_launch(device):
 def after_warmup(handle, step_fn):
     """``step_fn`` that first waits for the warmup ``handle`` (None:
     ``step_fn`` itself), so a failed warmup build or launch raises before
-    the step's first launch instead of staying in the handle."""
+    the step's first launch instead of staying in the handle. The wait is
+    the span ``warmup.wait``."""
     if handle is None:
         return step_fn
 
     def step(*args):
-        handle.wait()
+        with tracing.span("warmup.wait"):
+            handle.wait()
         return step_fn(*args)
 
     return step

@@ -54,8 +54,10 @@ Phases, each reported on its own line(s) of standard output:
   6. times on the card (CUDA events) for each kernel and its plain
      version, fused frames/s, and the device busy share under
      ``torch.profiler``, beside the card's name and power limit;
-  7. stage split: the main path once more with a synchronize around each
-     stage (host ms per frame; the table goes to chiprun_out/).
+  7. split: the main path once more, unsynced, read off the port's own
+     spans and counters (``amof_tpu_torch.tracing``): calls, inclusive
+     and self host ms a frame of each span (the table goes to
+     chiprun_out/).
 
 The batched pore step (``BatchedPore``, column path) joins each phase at
 bench.py's pore configuration (resolution 0.25 A, MC volume with 50000
@@ -133,8 +135,9 @@ launching, read wall and MB/s printed), then (``ring_phase``) runs
 ``Ring.census`` with {"Fr-Zn": 3.8} and max_search_depth 32 on the 4x4x4
 decorated diamond net (1536 nodes, 4 frames of 0.1 A jitter): RC(12)
 1024 and PN(12) 1 on every frame, final depth 16, no supercell census,
-and the census's own split a frame (``ring.core.SPLIT``: guard, bond
-graph, BFS and copy, BFS device time by CUDA events, C++ census) with
+and the census's own split a frame (the ``ring.*`` spans of
+``amof_tpu_torch.tracing``: guard, bond graph, BFS and copy, BFS device
+time by CUDA events, C++ census) with
 the peak device memory; side runs: ``Ring.census`` of one 8x8x8 frame
 (12288 nodes, RC(12) 8192, the same checks and split), the spanning-ring
 frame (the supercell census engages) and ``example_reduced.xyz`` with
@@ -916,86 +919,59 @@ def rdf_geometry(n, n_u, s, bins, ortho):
     return out
 
 
-def _counters():
-    from amof_tpu_torch.ops import neighbor_kernel, rdf_kernel
-    from amof_tpu_torch.pore import grid_kernel, surface_kernel
-    from amof_tpu_torch.warmup import LAUNCHES as warmup_launches
-
-    return (rdf_kernel.LAUNCHES, neighbor_kernel.LAUNCHES,
-            surface_kernel.LAUNCHES, grid_kernel.LAUNCHES, warmup_launches)
+_launch_base = {"spans": {}, "counts": {}}
 
 
 def reset_launches():
-    for d in _counters():
-        for key in d:
-            d[key] = 0
+    """Zeroes the launch counts ``read_launches`` reports (a snapshot of
+    the port's registry, ``amof_tpu_torch.tracing``)."""
+    global _launch_base
+    from amof_tpu_torch import tracing
+
+    _launch_base = tracing.snapshot()
 
 
 def read_launches():
-    out = {}
-    for d in _counters():
-        out.update(d)
-    return out
+    """Launches of each hand-written kernel since ``reset_launches``
+    (the registry's ``launch.<kernel>`` counters)."""
+    from amof_tpu_torch import tracing
+
+    got = tracing.diff(tracing.snapshot(), _launch_base)["counts"]
+    return {name: got.get("launch." + name, 0) for name, _, _ in KERNELS}
 
 
-# stages of the fused step timed by stage_split: (module, attribute, label);
-# "frame pass" contains the stages below it except MSD
-STAGES = [
-    ("amof_tpu_torch.parallel.pipeline", "_frame_pass", "frame pass (all)"),
-    ("amof_tpu_torch.ops.pair_engine", "frame_rdf_counts", "RDF (#1)"),
-    ("amof_tpu_torch.ops.slab_table", "build_slab_layout", "slab layout"),
-    ("amof_tpu_torch.ops.neighbor_kernel", "window_table_slab",
-     "slab table (#3)"),
-    ("amof_tpu_torch.ops.neighbor_kernel", "window_table",
-     "window table (#4)"),
-    ("amof_tpu_torch.ops.slab_table", "cn_from_table", "CN from the table"),
-    ("amof_tpu_torch.ops.bad_kernel", "angle_histograms", "angle histograms"),
-    ("amof_tpu_torch.parallel.pipeline", "_msd", "MSD"),
-]
+def span_seconds(name):
+    """Seconds the registry holds under span ``name`` in this process, or
+    None where it has none (a build that did not run, say)."""
+    from amof_tpu_torch import tracing
+
+    entry = tracing.snapshot()["spans"].get(name)
+    return None if entry is None else entry[1]
 
 
-def stage_split(fa, batch, dev):
-    """Phase 7: host ms/frame of each stage of one fused run, each call
-    bracketed by torch.cuda.synchronize() (which inflates the total)."""
-    import importlib
-
+def registry_split(fa, batch, dev):
+    """Phase 7: one fused run, unsynced, split by the port's own spans and
+    counters (``amof_tpu_torch.tracing``): calls, inclusive and self host
+    ms a frame of each span, and the counters of the run."""
     import torch
 
-    spent = {label: 0.0 for _, _, label in STAGES}
-    calls = dict.fromkeys(spent, 0)
-    saved = []
+    from amof_tpu_torch import tracing
 
-    def timed(fn, label):
-        def wrapper(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                torch.cuda.synchronize()
-                spent[label] += time.perf_counter() - t0
-                calls[label] += 1
-        return wrapper
-
-    for mod_name, attr, label in STAGES:
-        mod = importlib.import_module(mod_name)
-        saved.append((mod, attr, getattr(mod, attr)))
-        setattr(mod, attr, timed(getattr(mod, attr), label))
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out, _ = fa.run(batch, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
-    check(not out["bad_overflow"].any(), "stage split: frames left flagged")
+    torch.cuda.synchronize()
+    before = tracing.snapshot()
+    t0 = time.perf_counter()
+    out, meta = fa.run(batch, device=dev)  # its download waits for the card
+    wall = time.perf_counter() - t0
+    got = tracing.diff(tracing.snapshot(), before)
+    check(not out["bad_overflow"].any(), "registry split: frames left flagged")
     n = batch.num_frames
-    lines = [f"stage split, {n} frames, synced stages: wall {wall:.3f} s = "
-             f"{1e3 * wall / n:.3f} ms/frame"]
-    lines += [f"  {label:<20s} {1e3 * spent[label] / n:8.3f} ms/frame  "
-              f"calls {calls[label]}" for _, _, label in STAGES]
+    lines = [f"registry split, {n} frames, unsynced: wall {wall:.3f} s = "
+             f"{1e3 * wall / n:.3f} ms/frame; reruns {meta['reruns']}"]
+    lines += [f"  {name:<26s} {1e3 * secs / n:8.3f} ms/frame, self "
+              f"{1e3 * own / n:8.3f}, calls {calls}"
+              for name, (calls, secs, own) in sorted(
+                  got["spans"].items(), key=lambda kv: -kv[1][1])]
+    lines += [f"  count {name}: {k}" for name, k in got["counts"].items()]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_stages.txt"), "w") as fh:
         fh.write("\n".join(lines) + "\n")
@@ -2213,8 +2189,9 @@ def ring_fixtures():
 
 def ring_engine_build(card):
     """Phase 2: g++'s version and the build of the ring engine
-    (``amof_tpu_torch/native/ringsearch.cpp``) beside nvcc's time."""
-    from amof_tpu_torch import _build, native
+    (``amof_tpu_torch/native/ringsearch.cpp``) beside nvcc's time (the
+    spans ``build.gxx`` and ``build.nvcc``)."""
+    from amof_tpu_torch import native
 
     version = subprocess.run(["g++", "--version"], capture_output=True,
                              text=True, timeout=60).stdout.splitlines()
@@ -2222,14 +2199,13 @@ def ring_engine_build(card):
     t0 = time.perf_counter()
     native.get_lib()
     load_s = time.perf_counter() - t0
-    gxx_s = native.build_seconds
+    gxx_s, nvcc_s = span_seconds("build.gxx"), span_seconds("build.nvcc")
     say(f"ring engine: {version[0]}; "
         + (f"g++ ran: {gxx_s:.2f} s" if gxx_s is not None
            else "g++ did not run: loaded an existing build")
         + f" (load {load_s:.2f} s; {native.library_path().name}); nvcc "
-        + (f"{_build.build_seconds:.1f} s" if _build.build_seconds
-           else "did not run") + f" on {card}")
-    return {"gxx": version[0], "gxx_s": gxx_s, "nvcc_s": _build.build_seconds}
+        + (f"{nvcc_s:.1f} s" if nvcc_s else "did not run") + f" on {card}")
+    return {"gxx": version[0], "gxx_s": gxx_s, "nvcc_s": nvcc_s}
 
 
 def write_lammps_dump(path, batch):
@@ -2347,17 +2323,17 @@ def io_phase(batch, dev, card):
 
 def census_run(frames, cutoffs, dev, depth=RING_DEPTH):
     """``Ring.census`` of ``frames``, synced, with the kernel counters,
-    ``ring.core.SPLIT`` and the peak device memory reset just before it
+    the ``ring.*`` spans and the peak device memory reset just before it
     and read just after. Returns (labeled array, reports, wall s, ms a
     frame by piece of the census, peak GiB, kernel launches)."""
     import torch
 
-    from amof_tpu_torch.ring import Ring, core
+    from amof_tpu_torch import tracing
+    from amof_tpu_torch.ring import Ring
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    core.reset_split()
     t0 = time.perf_counter()
     stacked, reports = Ring(max_search_depth=depth).census(
         frames, [cutoffs] * len(frames), list(range(len(frames))),
@@ -2365,7 +2341,9 @@ def census_run(frames, cutoffs, dev, depth=RING_DEPTH):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in read_launches().items() if v}
-    split = {k: 1e3 * v / len(frames) for k, v in core.SPLIT.items()}
+    spans = tracing.diff(tracing.snapshot(), _launch_base)["spans"]
+    split = {k[len("ring."):]: 1e3 * v[1] / len(frames)
+             for k, v in spans.items() if k.startswith("ring.")}
     peak = torch.cuda.max_memory_allocated() / 2**30
     return stacked, reports, wall, split, peak, launches
 
@@ -2421,7 +2399,7 @@ def ring_phase(dev, card):
     4x4x4 decorated diamond net (1536 nodes, 55.43 A, 4 frames of 0.1 A
     jitter from seed 0): RC(12) = 1024 and PN(12) = 1 on every frame,
     final depth 16, no supercell census, with the census's own split a
-    frame (``ring.core.SPLIT``). Side runs: ``Ring.census`` of one 8x8x8
+    frame (the ``ring.*`` spans). Side runs: ``Ring.census`` of one 8x8x8
     frame (12288 nodes, RC(12) = 8192, the same checks and split), the
     spanning-ring frame (the 2x2x2 supercell census must engage) and
     ``example_reduced`` with its stored cutoff. The kernel counters are
@@ -2576,7 +2554,6 @@ def warmup_phase(card):
     ``warmup(block=True)``; the warmup thread runs the nvcc build and
     launches kernel #9. Returns its launches."""
     from amof_tpu_torch import _build, warmup
-    from amof_tpu_torch.warmup import LAUNCHES
 
     reset_launches()
     t0 = time.perf_counter()
@@ -2585,14 +2562,17 @@ def warmup_phase(card):
     warmup(block=True)
     t_block = time.perf_counter() - t0
     check(handle is not None and handle.error is None, "warmup failed")
-    check(LAUNCHES["warmup_copy"] == 1,
-          f"warmup launched warmup_copy {LAUNCHES['warmup_copy']} times")
-    how = (f"nvcc ran: {_build.build_seconds:.1f} s" if _build.build_seconds
+    launches = read_launches()
+    check(launches["warmup_copy"] == 1,
+          f"warmup launched warmup_copy {launches['warmup_copy']} times")
+    nvcc_s = span_seconds("build.nvcc")
+    how = (f"nvcc ran: {nvcc_s:.1f} s" if nvcc_s
            else "nvcc did not run: loaded an existing build")
     say(f"warmup(): returned after {1e3 * t_return:.1f} ms; warmup("
         f"block=True) done {t_block:.2f} s after the first call ({how}; "
+        f"build.library {span_seconds('build.library'):.2f} s; "
         f"{_build.library_path().name}) on {card}")
-    return dict(LAUNCHES)
+    return launches
 
 
 def cold_start_child(mode):
@@ -2611,8 +2591,11 @@ def cold_start_child(mode):
 
     import torch
 
-    from amof_tpu_torch import _build
-    from amof_tpu_torch.warmup import LAUNCHES, warmup_copy
+    from amof_tpu_torch import _build, tracing
+    from amof_tpu_torch.warmup import warmup_copy
+
+    def copies():
+        return tracing.snapshot()["counts"].get("launch.warmup_copy", 0)
 
     out = {"mode": mode}
     build_dir = pathlib.Path(_build.BUILD_DIR) / f"cold_{mode}_{os.getpid()}"
@@ -2637,13 +2620,13 @@ def cold_start_child(mode):
                 out[key] = time.perf_counter() - t0
             from amof_tpu_torch.parallel.pipeline import FusedAnalysis
 
-            before = LAUNCHES["warmup_copy"]
+            before = copies()
             small, _ = make_trajectory(2, 2048, seed=3)
             step_fn, args, _ = FusedAnalysis(
                 CUTOFFS, **{**BENCH, "frames_per_call": 2}).prepare(
                 small, device="cuda")
             step_fn(*args)
-            out["prepare_warmup_launches"] = LAUNCHES["warmup_copy"] - before
+            out["prepare_warmup_launches"] = copies() - before
         else:
             from amof_tpu_torch.parallel.pipeline import FusedAnalysis
 
@@ -2657,8 +2640,8 @@ def cold_start_child(mode):
             step_fn(*args)
             torch.cuda.synchronize()
             out["first_result_s"] = time.perf_counter() - t0
-            out["nvcc_s"] = _build.build_seconds
-        out["warmup_launches"] = LAUNCHES["warmup_copy"]
+            out["nvcc_s"] = span_seconds("build.nvcc")
+        out["warmup_launches"] = copies()
     finally:
         shutil.rmtree(build_dir, ignore_errors=True)
     print("COLD " + json.dumps(out), flush=True)
@@ -3190,8 +3173,8 @@ def main():
     # 6 and 7, pore: step time, prepare time, stage split
     pore_ms, pore_prep, pore_miss = pore_times(pb, dev, card)
 
-    # 7. stage split
-    stage_split(fa, batch, dev)
+    # 7. split by the port's spans
+    registry_split(fa, batch, dev)
 
     kernels = []
     for name, src, replaces in KERNELS:

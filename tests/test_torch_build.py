@@ -15,7 +15,7 @@ import threading
 import pytest
 import torch
 
-from amof_tpu_torch import _build, warmup
+from amof_tpu_torch import _build, tracing, warmup
 
 wmod = importlib.import_module("amof_tpu_torch.warmup")
 
@@ -200,7 +200,9 @@ def test_warmup_without_a_card_raises(monkeypatch):
 
 def test_warmup_copy_plain_on_cpu():
     src = torch.arange(1024, dtype=torch.float32).reshape(wmod.SHAPE)
-    before = wmod.LAUNCHES["warmup_copy"]
+    before = tracing.snapshot()
     out = wmod.warmup_copy(src)
     assert torch.equal(out, src) and out.data_ptr() != src.data_ptr()
-    assert wmod.LAUNCHES["warmup_copy"] == before  # CPU calls do not count
+    # CPU calls do not count
+    assert "launch.warmup_copy" not in tracing.diff(tracing.snapshot(),
+                                                    before)["counts"]

@@ -16,8 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+from amof_tpu_torch import tracing
 from amof_tpu_torch.ops import (neighbor_kernel, pair_engine, rdf_kernel,
                                 slab_table)
+
+
+def launches(kernel):
+    """Launches of ``kernel`` in this process (the registry's counter)."""
+    return tracing.snapshot()["counts"].get("launch." + kernel, 0)
+
 
 CUTOFF = np.array([[2.2, 2.0, 1.8], [2.0, 1.6, 2.4], [1.8, 2.4, 0.0]],
                   np.float32)
@@ -221,9 +228,9 @@ def test_rdf_blocked_wrapper_past_smem_takes_kernel_2(cuda):
     bins = 60000  # 240,000 B of bins, dr 0.0003: 18 A
     assert bins * 4 > rdf_kernel.SMEM_LIMIT
     p, c, t = on(cuda, pos_l, cell, sp_l)
-    before = rdf_kernel.LAUNCHES["rdf_counts_blocked"]
+    before = launches("rdf_counts_blocked")
     got = rdf_kernel.rdf_counts_blocked(p, c, t, 0.0003, 3, bins, ortho=True)
-    assert rdf_kernel.LAUNCHES["rdf_counts_blocked"] == before + 1
+    assert launches("rdf_counts_blocked") == before + 1
     ref = rdf_kernel.rdf_counts_plain(p, c, t, 0.0003, 3, bins, ortho=True)
     assert float(ref.sum()) > 0
     assert_same([got], [ref])
@@ -481,11 +488,11 @@ def test_window_kernel_matches_plain(cuda, name, k, chunk, window):
 def test_wrappers_count_launches_and_check_inputs(cuda):
     pos, cell, sp = case(512, 2, 5, 20.0)
     p, c, s = on(cuda, pos, cell, sp)
-    before = rdf_kernel.LAUNCHES["rdf_counts"]
+    before = launches("rdf_counts")
     rdf_kernel.rdf_counts(p, c, s, 0.05, 2, 100)
-    assert rdf_kernel.LAUNCHES["rdf_counts"] == before + 1
+    assert launches("rdf_counts") == before + 1
     rdf_kernel.rdf_counts_plain(p, c, s, 0.05, 2, 100)
-    assert rdf_kernel.LAUNCHES["rdf_counts"] == before + 1
+    assert launches("rdf_counts") == before + 1
     with pytest.raises(ValueError):
         rdf_kernel.rdf_counts(p.double(), c, s, 0.05, 2, 100)
     with pytest.raises(ValueError):
@@ -493,34 +500,34 @@ def test_wrappers_count_launches_and_check_inputs(cuda):
     for fn in (rdf_kernel.rdf_counts, rdf_kernel.rdf_counts_blocked):
         with pytest.raises(ValueError):
             fn(p, c, s, 2.0 ** -51, 2, 100)
-    assert rdf_kernel.LAUNCHES["rdf_counts"] == before + 1
+    assert launches("rdf_counts") == before + 1
 
     centers, cand, starts, qb, c, ct, chunk, w = slab_case(cuda, "bench")
     args = [centers, cand, starts, qb, c, ct, 8, chunk, w]
-    before = neighbor_kernel.LAUNCHES["window_table_slab"]
+    before = launches("window_table_slab")
     neighbor_kernel.window_table_slab(*args)
-    assert neighbor_kernel.LAUNCHES["window_table_slab"] == before + 1
+    assert launches("window_table_slab") == before + 1
     neighbor_kernel.window_table_slab_plain(*args)
-    assert neighbor_kernel.LAUNCHES["window_table_slab"] == before + 1
+    assert launches("window_table_slab") == before + 1
     for i, bad in ((0, centers.double()), (2, starts[:-1]),
                    (3, qb.transpose(1, 2)), (5, ct.cpu()),
                    (1, cand.t().contiguous().t())):
         with pytest.raises(ValueError):
             neighbor_kernel.window_table_slab(*args[:i], bad, *args[i + 1:])
-    assert neighbor_kernel.LAUNCHES["window_table_slab"] == before + 1
+    assert launches("window_table_slab") == before + 1
 
     pos_s, sp_s, c, ct = window_case(cuda, "3000 atoms, triclinic")
     args = [pos_s, sp_s, c, ct, 8, 256, 512]
-    before = neighbor_kernel.LAUNCHES["window_table"]
+    before = launches("window_table")
     neighbor_kernel.window_table(*args)
-    assert neighbor_kernel.LAUNCHES["window_table"] == before + 1
+    assert launches("window_table") == before + 1
     neighbor_kernel.window_table_plain(*args)
-    assert neighbor_kernel.LAUNCHES["window_table"] == before + 1
+    assert launches("window_table") == before + 1
     for i, bad in ((0, pos_s.double()), (1, sp_s.long()), (2, c.t()),
                    (3, ct.cpu()), (0, pos_s[:-1])):
         with pytest.raises(ValueError):
             neighbor_kernel.window_table(*args[:i], bad, *args[i + 1:])
-    assert neighbor_kernel.LAUNCHES["window_table"] == before + 1
+    assert launches("window_table") == before + 1
 
 
 @pytest.mark.cuda
@@ -531,9 +538,9 @@ def test_warmup_copy_matches_copy(cuda):
     wmod = importlib.import_module("amof_tpu_torch.warmup")
     src = torch.from_numpy(np.random.default_rng(6).normal(
         size=wmod.SHAPE).astype(np.float32)).to(cuda)
-    before = wmod.LAUNCHES["warmup_copy"]
+    before = launches("warmup_copy")
     got = wmod.warmup_copy(src)
-    assert wmod.LAUNCHES["warmup_copy"] == before + 1
+    assert launches("warmup_copy") == before + 1
     assert_same([got], [wmod.warmup_copy_plain(src)])
     with pytest.raises(ValueError):
         wmod.warmup_copy(src.double())
@@ -880,14 +887,13 @@ def test_pore_wrappers_count_launches(cuda):
 
     frac, cell, radii = pore_system(300, 16.0, 2)
     f, c, r = on(cuda, frac, cell, radii)
-    before = dict(surface_kernel.LAUNCHES), dict(grid_kernel.LAUNCHES)
+    before = launches("void_masks_points"), launches("flood_fill")
     m = surface_kernel.void_masks_points(f, c, r, (16, 16, 16), 1.2, 1.2,
                                          4, 4, 256)[1]
     grid_kernel.void_classification_mask(m)
     grid_kernel.void_masks_columns(f, c, r, (16, 16, 16), 1.2, 1.2, 4, 4, 256)
-    assert surface_kernel.LAUNCHES["void_masks_points"] == \
-        before[0]["void_masks_points"] + 1
-    assert grid_kernel.LAUNCHES["flood_fill"] == before[1]["flood_fill"] + 2
+    assert launches("void_masks_points") == before[0] + 1
+    assert launches("flood_fill") == before[1] + 2
     with pytest.raises(ValueError):
         surface_kernel.void_masks_points(f.double(), c, r, (16, 16, 16),
                                          1.2, 1.2, 4, 4, 256)

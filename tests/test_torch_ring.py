@@ -23,7 +23,7 @@ from amof_tpu import native as jnative
 from amof_tpu.core.frames import Frame as JFrame
 import amof_tpu_torch.ring as tring
 import amof_tpu_torch.trajectory as ttraj
-from amof_tpu_torch import native
+from amof_tpu_torch import native, tracing
 from amof_tpu_torch.core.frames import Frame as TFrame
 from amof_tpu_torch.ring import core as tcore
 
@@ -340,13 +340,17 @@ def test_census_is_the_pandas_free_half_of_compute_ring():
 
 def test_census_split_sums_the_pieces_of_each_frame():
     (tframes, _), cutoffs, depth = systems("graphene")
-    tcore.reset_split()
+    before = tracing.snapshot()
     tring.Ring(max_search_depth=depth).census(tframes, [cutoffs] * 2,
                                               [0, 7], device="cpu")
-    assert set(tcore.SPLIT) == {"guard", "adjacency", "bfs_copy", "census"}
-    assert all(v > 0 for v in tcore.SPLIT.values())
-    tcore.reset_split()
-    assert tcore.SPLIT == {}
+    spans = {k: v for k, v in tracing.diff(tracing.snapshot(),
+                                           before)["spans"].items()
+             if k.startswith("ring.")}
+    assert set(spans) == {"ring.guard", "ring.adjacency", "ring.bfs_copy",
+                          "ring.census"}
+    assert all(calls >= 2 and secs > 0 for calls, secs, _ in spans.values())
+    tracing.reset()
+    assert tracing.snapshot() == {"spans": {}, "counts": {}}
 
 
 def test_frame_census_with_the_torch_bfs_equals_the_engines_own():
@@ -475,12 +479,12 @@ def test_concurrent_builds_leave_one_library(fresh_native):
     load, and only the finished library is left (no temporary file)."""
     code = (
         "import pathlib, sys\n"
-        "from amof_tpu_torch import native\n"
+        "from amof_tpu_torch import native, tracing\n"
         "native.BUILD_DIR = pathlib.Path(sys.argv[1])\n"
         "rings, _, _ = native.ring_census([[1, 5], [0, 2], [1, 3], [2, 4],\n"
         "                                  [3, 5], [4, 0]], 12)\n"
         "assert [len(r) for r in rings] == [6]\n"
-        "print('built', native.build_seconds is not None)\n"
+        "print('built', 'build.gxx' in tracing.snapshot()['spans'])\n"
     )
     build = fresh_native / "build"
     procs = [subprocess.Popen([sys.executable, "-c", code, str(build)],

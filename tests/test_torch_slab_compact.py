@@ -38,6 +38,7 @@ from amof_tpu.ops import slab_table as jax_slab
 from amof_tpu_torch.ops import neighbor_kernel as nk
 from amof_tpu_torch.ops import slab_table
 
+from test_torch_kernels import launches
 from test_torch_rdf import grid_case, t
 
 torch.set_num_threads(2)
@@ -254,9 +255,9 @@ def test_centers_per_block(chunk, k, cpb):
 
 def test_cpu_wrapper_is_the_plain_version():
     centers, cand, starts, qb, cell, cut, plan = bench_layout(2048)
-    before = nk.LAUNCHES["window_table_slab"]
+    before = launches("window_table_slab")
     args = (centers, cand, starts, qb, cell, cut, 8, plan.chunk, plan.window)
     got = nk.window_table_slab(*args)
-    assert nk.LAUNCHES["window_table_slab"] == before
+    assert launches("window_table_slab") == before
     for g, r in zip(got, nk.window_table_slab_plain(*args)):
         assert torch.equal(g, r)

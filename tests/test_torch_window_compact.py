@@ -44,7 +44,7 @@ from amof_tpu_torch.ops import neighbor_kernel as nk
 from amof_tpu_torch.ops import pair_engine
 
 from test_torch_kernels import (BENCH_CUT, CUTOFF, bench_glass, case,
-                                crowd_first_zn, reach_edge)
+                                crowd_first_zn, launches, reach_edge)
 from test_torch_rdf import grid_case, t
 
 torch.set_num_threads(2)
@@ -211,9 +211,9 @@ def test_twin_equals_pallas_interpret(triclinic, k):
 
 def test_cpu_wrapper_is_the_plain_version():
     pos, cell, sp, _ = bench_glass(2048)
-    before = nk.LAUNCHES["window_table"]
+    before = launches("window_table")
     args = (*sort(pos, cell, sp), t(BENCH_CUT), 16, 256, 384)
     got = nk.window_table(*args)
-    assert nk.LAUNCHES["window_table"] == before
+    assert launches("window_table") == before
     for g, r in zip(got, nk.window_table_plain(*args)):
         assert torch.equal(g, r)
