@@ -16,7 +16,8 @@ from which every B-A-B spec of the reference's enumeration
 
 The cn axis has K + 1 slots with ``by_cn`` (BadByCn) and size 1 without
 (the fused step and ``Bad``). Counts accumulate in place (``index_add_``
-of ones into float64, exact in any order): S^2 (K+1) bins reaches ~30M
+of 0/1 weights into float64 over every slot pair, exact in any order and
+with no read-back from the card): S^2 (K+1) bins reaches ~30M
 slots at K 512, which must not be allocated per chunk.
 
 The table comes from the 2-level slab windows (kernel #3), the 1-level
@@ -110,9 +111,16 @@ def frame_bad_counts(positions, cell, species_idx, cutoff_matrix,
     return (conc, any_, flag, *extra)
 
 
-def _accumulate(acc, keys):
-    """acc[k] += 1 for every key (acc a flat float64 tensor)."""
-    acc.index_add_(0, keys, acc.new_ones(keys.shape))
+def _accumulate(acc, keys, valid, spread):
+    """acc[k] += 1 for every key where ``valid`` (acc a flat float64
+    tensor): one add over every entry, the mask as float64 weights, so
+    nothing reads a count back from the card (a CUDA graph can hold it).
+    The counts stay exact integers in any order (x + 0.0 == x). A masked
+    entry adds its 0 at ``spread`` (its flat index) folded into ``acc``:
+    empty slots sit at position 0, so their own keys would pile up in a
+    few bins and queue their atomics on a few addresses."""
+    keys = torch.where(valid, keys, spread % acc.numel())
+    acc.index_add_(0, keys.reshape(-1), valid.reshape(-1).to(acc.dtype))
 
 
 def angle_histograms(nbr_pos, nbr_sp, center_pos, center_sp, cell, inv_cell,
@@ -173,8 +181,10 @@ def angle_histograms(nbr_pos, nbr_sp, center_pos, center_sp, cell, inv_cell,
         key_c = ((a_sp * n_species + b_sp) * cn_slots + cn_of_pair) * bins \
             + tbin
         key_a = (a_sp * cn_slots + cn_all) * bins + tbin
-        _accumulate(conc, key_c[same])
-        _accumulate(any_, key_a[pair_valid])
+        spread = torch.arange((r1 - r0) * n_pairs, device=dev).view(
+            r1 - r0, n_pairs)
+        _accumulate(conc, key_c, same, spread)
+        _accumulate(any_, key_a, pair_valid, spread)
     if out is not None:
         return out
     return (conc.to(torch.float32).reshape(n_species, n_species, cn_slots,

@@ -271,13 +271,20 @@ def window_missed(keys_s, sp_s, cell, cutoff_matrix, window: int):
 
 def cn_from_table(nbr_sp, center_sp, n_species: int):
     """float32 [S, S] per-species-pair counts read off a compacted table
-    (exact whenever no center overflowed K)."""
-    cs = center_sp.long()
-    ns = nbr_sp.long()
-    keep = (cs >= 0)[:, None] & (ns >= 0)
-    key = (cs[:, None] * n_species + ns)[keep]
-    cn = torch.bincount(key, minlength=n_species * n_species)
-    return cn.reshape(n_species, n_species).to(torch.float32)
+    (exact whenever no center overflowed K).
+
+    Each center's neighbours of each species, times the centers' species
+    one-hot, summed over the centers (int64: exact in any order). No mask
+    selection and no ``bincount``, which both read a size back from the
+    card, so the call never waits for it (a CUDA graph can hold it); no
+    atomics, which would queue on the S x S addresses; and no cuBLAS,
+    whose 32 MiB workspace PyTorch keeps for every stream it runs on (a
+    frame graph captures on a side stream of its own)."""
+    iota = torch.arange(n_species, device=nbr_sp.device)
+    center = center_sp.long()[:, None] == iota
+    nbrs = (nbr_sp.long()[:, :, None] == iota).sum(dim=1)
+    return (center[:, :, None] * nbrs[:, None, :]).sum(dim=0).to(
+        torch.float32)
 
 
 def frame_neighbor_payload_table_sorted(positions, cell, species_idx,

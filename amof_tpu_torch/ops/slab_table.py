@@ -148,6 +148,15 @@ def _sort_rows(keys, *cols):
     return (keys_s,) + tuple(c[order] for c in cols)
 
 
+def slab_populations(slab, nsx: int):
+    """Rows in each of the ``nsx`` slabs, int64 [nsx] (``slab`` in
+    [0, nsx)): a fixed-size add, where ``bincount`` would read the
+    largest slab back from the card."""
+    slab = slab.long()
+    pop = torch.zeros(nsx, dtype=torch.int64, device=slab.device)
+    return pop.index_add_(0, slab, torch.ones_like(slab))
+
+
 def build_slab_layout(positions, species_idx, cell, plan: SlabPlan,
                       inv_cell=None):
     """Per-frame construction of the 2-level layout.
@@ -183,7 +192,7 @@ def build_slab_layout(positions, species_idx, cell, plan: SlabPlan,
     sp_f = species_idx.to(f32)
 
     # ---- slab populations + filler placement (all input rows count)
-    pop = torch.bincount(slab.long(), minlength=nsx)
+    pop = slab_populations(slab, nsx)
     missed = (pop > cap).any()
     deficit = torch.clamp(cap - pop, min=0)
     cum_def = torch.cumsum(deficit, 0)
@@ -235,13 +244,14 @@ def build_slab_layout(positions, species_idx, cell, plan: SlabPlan,
     # ---- per-chunk run ranges
     n_chunks = m // chunk
     live = sp_sorted >= 0
-    inf = torch.tensor(float("inf"), dtype=f32, device=dev)
+    # constants as scalars and device fills, never copies from the host
+    inf = float("inf")
     fy_lo = torch.where(live, fy_sorted, inf).reshape(n_chunks, chunk).amin(1)
     fy_hi = torch.where(live, fy_sorted, -inf).reshape(n_chunks, chunk).amax(1)
     sx = torch.arange(n_chunks, device=dev) // (cap // chunk)
     qlo_y = fy_lo - plan.ry
     qhi_y = fy_hi + plan.ry
-    offs = torch.tensor([-1, 0, 1], device=dev)
+    offs = torch.arange(-1, 2, device=dev)
     slab_r = torch.remainder(sx[:, None] + offs[None, :], nsx)  # [C, 3]
     base = slab_r.to(f32) * 3.0 + 1.0
     klo = base + qlo_y[:, None]

@@ -20,17 +20,31 @@ A frame whose neighbour table overflowed K (or whose window missed)
 contributes nothing to the BAD histograms in its first pass and is rerun
 at doubled capacity, so no angle is ever dropped silently.
 
+On the card the chunked step's first pass on the slab rung replays one
+CUDA graph a frame (``_FrameGraph``): some 300 launches and no wait for
+the card, where the eager pass paid ~4 ms of host dispatch a frame for
+~0.8 ms of device work. A step function owns its graphs: one capture
+for each K its groups start at, at its first call. Every other pass
+(escalated groups, the rerun ladder, the other rungs, the monolithic
+step, the CPU) runs eagerly.
+
 Spans and counters (``amof_tpu_torch.tracing``): ``pipeline.prepare``
 (``.layout``, ``.slab_plan``, ``.upload``), ``pipeline.step``,
 ``pipeline.frame`` (``.rdf``; the table and angles as ``bad.table``,
-``bad.angles``), ``pipeline.sums``, ``pipeline.flags_read``,
-``pipeline.rerun``, ``pipeline.msd``, ``pipeline.download``; counters
-``pipeline.frames`` and the rerun tallies ``RERUNS`` (also in ``meta``).
+``bad.angles``), ``pipeline.capture``, ``pipeline.sums``,
+``pipeline.flags_read``, ``pipeline.rerun``, ``pipeline.msd``,
+``pipeline.download``; counters ``pipeline.frames``,
+``pipeline.frames_graphed``, ``pipeline.graph_captures`` and the rerun
+tallies ``RERUNS`` (also in ``meta``).
 """
 
 from __future__ import annotations
 
+import functools
+import gc
 import logging
+import threading
+from contextlib import nullcontext
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -103,30 +117,37 @@ def _frame_pass(cfg: _Config, a: StepArgs, f: int, k_cap: int,
     BAD concrete, BAD center_any, flag bool[], window missed bool[] or
     None)."""
     with tracing.span("pipeline.frame"):
-        pos, cell, inv = a.positions[f], a.cells[f], a.inv_cells[f]
-        s = cfg.n_species
-        rdf = None
-        if with_rdf:
-            with tracing.span("pipeline.frame.rdf"):
-                rdf = a.volumes[f] * pair_engine.frame_rdf_counts(
-                    pos, cell, a.species_idx, cfg.dr, s, cfg.bins,
-                    blocked=cfg.blocked, ortho=cfg.ortho, inv_cell=inv,
-                )
-        if not cfg.with_bad:
-            cn = pair_engine.frame_cn_counts(
-                pos, cell, a.species_idx, a.cutoff_matrix, s, cfg.chunk,
-                inv_cell=inv,
+        return _frame_math(cfg, a.positions[f], a.cells[f], a.inv_cells[f],
+                           a.volumes[f], a.species_idx, a.cutoff_matrix,
+                           k_cap, with_rdf, rung)
+
+
+def _frame_math(cfg: _Config, pos, cell, inv, volume, species_idx,
+                cutoff_matrix, k_cap: int, with_rdf: bool, rung: str):
+    """``_frame_pass`` on one frame's tensors (no span of its own)."""
+    s = cfg.n_species
+    rdf = None
+    if with_rdf:
+        with tracing.span("pipeline.frame.rdf"):
+            rdf = volume * pair_engine.frame_rdf_counts(
+                pos, cell, species_idx, cfg.dr, s, cfg.bins,
+                blocked=cfg.blocked, ortho=cfg.ortho, inv_cell=inv,
             )
-            return rdf, cn, None, None, torch.zeros(
-                (), dtype=torch.bool, device=pos.device), None
-        bad_c, bad_a, flag, cn, missed = bad_kernel.frame_bad_counts(
-            pos, cell, a.species_idx, a.cutoff_matrix, s, cfg.dtheta,
-            cfg.bad_bins, k_cap, cfg.chunk,
-            window=cfg.bad_window if rung in ("slab", "window") else None,
-            emit_cn=True, slab=cfg.bad_slab if rung == "slab" else None,
-            inv_cell=inv, emit_missed=True,
+    if not cfg.with_bad:
+        cn = pair_engine.frame_cn_counts(
+            pos, cell, species_idx, cutoff_matrix, s, cfg.chunk,
+            inv_cell=inv,
         )
-        return rdf, cn, bad_c, bad_a, flag, missed
+        return rdf, cn, None, None, torch.zeros(
+            (), dtype=torch.bool, device=pos.device), None
+    bad_c, bad_a, flag, cn, missed = bad_kernel.frame_bad_counts(
+        pos, cell, species_idx, cutoff_matrix, s, cfg.dtheta,
+        cfg.bad_bins, k_cap, cfg.chunk,
+        window=cfg.bad_window if rung in ("slab", "window") else None,
+        emit_cn=True, slab=cfg.bad_slab if rung == "slab" else None,
+        inv_cell=inv, emit_missed=True,
+    )
+    return rdf, cn, bad_c, bad_a, flag, missed
 
 
 def _count_flags(flags) -> int:
@@ -170,6 +191,157 @@ class _Sums:
         self.flag[f] = flag
         if bad_c is not None:
             self.add_bad(bad_c, bad_a, flag)
+
+
+class _FrameGraph:
+    """The first pass of a slab-rung frame as one replayable unit: on
+    CUDA a ``torch.cuda.CUDAGraph`` of ``_body`` (kernel #1 and its
+    volume weight, the slab layout, kernel #3, CN off the table, the
+    angle histograms, and the frame's adds), one launch a frame in place
+    of ~300 and no wait for the card; on the CPU ``_body`` runs eagerly.
+
+    ``_body`` reads static inputs, filled by device-to-device copies
+    before each frame: the frame's positions, cell, inverse cell, volume
+    and slot in its group, and the step's species and cutoffs. Its
+    outputs are ``group``, a ``_Sums`` of one group: the frame's weighted
+    RDF goes into ``rdf`` (the step's RDF sum, shared by the step's
+    graphs, so frames add in the eager order), its flag-masked BAD
+    counts into the group's float64 accumulators, its CN row and flag
+    into the group's slot. The graph is captured at the first frame, on
+    a side stream of its own after one eager pass there (which makes
+    kernel #1's work queue for that stream and runs its root check); the
+    outputs are restored after that pass, so every frame counts once.
+    One step function owns its graphs (``_make_chunked_step``)."""
+
+    def __init__(self, cfg: _Config, n_pad: int, k_cap: int, fpc: int,
+                 rdf: torch.Tensor):
+        self.device = dev = rdf.device
+        s, f32 = cfg.n_species, torch.float32
+        self.cfg, self.k_cap, self.fpc = cfg, k_cap, fpc
+        self.pos = torch.zeros((n_pad, 3), dtype=f32, device=dev)
+        self.cell = torch.zeros((3, 3), dtype=f32, device=dev)
+        self.inv = torch.zeros((3, 3), dtype=f32, device=dev)
+        self.volume = torch.zeros((), dtype=f32, device=dev)
+        self.species = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+        self.cutoff = torch.zeros((s, s), dtype=f32, device=dev)
+        self.slots = torch.arange(fpc, device=dev)
+        self.slot = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.group = _Sums(cfg, fpc, dev)  # its own BAD, CN and flags
+        self.group.rdf = rdf
+        self.graph = None
+        self.launches = {}  # launch.<kernel> -> launches a replay
+
+    def _body(self):
+        rdf, cn, bad_c, bad_a, flag, _ = _frame_math(
+            self.cfg, self.pos, self.cell, self.inv, self.volume,
+            self.species, self.cutoff, self.k_cap, True, "slab")
+        g = self.group
+        g.rdf += rdf.to(torch.float64)
+        g.add_bad(bad_c, bad_a, flag)
+        g.cn.index_copy_(0, self.slot, cn[None])
+        g.flag.index_copy_(0, self.slot, flag[None])
+
+    def _load(self, a: StepArgs, f: int, slot: int):
+        self.pos.copy_(a.positions[f])
+        self.cell.copy_(a.cells[f])
+        self.inv.copy_(a.inv_cells[f])
+        self.volume.copy_(a.volumes[f])
+        self.slot.copy_(self.slots[slot:slot + 1])
+
+    def _capture(self):
+        """One eager pass on a side stream, then the capture there. The
+        launches the capture recorded did not run: they leave the
+        counters, and each replay counts them."""
+        with tracing.span("pipeline.capture"):
+            g = self.group
+            outs = (g.rdf, g.bad_c, g.bad_a, g.cn, g.flag)
+            saved = [t.clone() for t in outs]
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                self._body()
+                before = tracing.snapshot()["counts"]
+                # no cycle collection while capturing: one that freed
+                # another step's graph would call CUDA, which capture
+                # forbids
+                collecting = gc.isenabled()
+                gc.disable()
+                try:
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        self._body()
+                    finally:
+                        graph.capture_end()
+                finally:
+                    if collecting:
+                        gc.enable()
+                after = tracing.snapshot()["counts"]
+            main.wait_stream(side)
+            for t, old in zip(outs, saved):
+                t.copy_(old)
+            self.launches = {k: n - before.get(k, 0)
+                             for k, n in after.items()
+                             if k.startswith("launch.")
+                             and n != before.get(k, 0)}
+            for k, n in self.launches.items():
+                tracing.count(k, -n)
+            self.graph = graph
+            tracing.count("pipeline.graph_captures")
+
+    def first_pass(self, a: StepArgs, i: int):
+        """Frames i .. i + fpc - 1 into the group's slots and accumulators
+        (zeroed first); returns the group's flags."""
+        self.species.copy_(a.species_idx)
+        self.cutoff.copy_(a.cutoff_matrix)
+        self.group.bad_c.zero_()
+        self.group.bad_a.zero_()
+        on_card = self.device.type == "cuda"
+        # capture and replay use the current device's streams
+        with torch.cuda.device(self.device) if on_card else nullcontext():
+            for j in range(self.fpc):
+                if on_card and self.graph is None:
+                    self._load(a, i + j, j)
+                    self._capture()
+                with tracing.span("pipeline.frame"):
+                    self._load(a, i + j, j)
+                    if on_card:
+                        self.graph.replay()
+                    else:
+                        self._body()
+                    for k, n in self.launches.items():
+                        tracing.count(k, n)
+                    tracing.count("pipeline.frames_graphed", int(on_card))
+        return self.group.flag
+
+    def add_group(self, sums: "_Sums", i: int):
+        """The group's first pass into the step's sums (RDF is there
+        already)."""
+        g = self.group
+        sums.bad_c += g.bad_c
+        sums.bad_a += g.bad_a
+        sums.cn[i:i + self.fpc] = g.cn
+        sums.flag[i:i + self.fpc] = g.flag
+
+
+def _one_call_at_a_time(step):
+    """``step``, refusing a call that starts while another runs: the
+    step's frame graphs and sums serve its calls in turn."""
+    running = threading.Lock()
+
+    @functools.wraps(step)
+    def guarded(*args):
+        if not running.acquire(blocking=False):
+            raise RuntimeError(
+                "this step function is running already; call prepare "
+                "again for a step function of its own")
+        try:
+            return step(*args)
+        finally:
+            running.release()
+
+    return guarded
 
 
 def _msd_atom_block(n_frames: int, n_pad: int,
@@ -233,6 +405,11 @@ class FusedAnalysis:
     ``msd_atoms_per_call`` atoms. Without ``frames_per_call`` the step is
     one pass with no reruns: flagged frames are reported in
     ``bad_overflow`` and left out of the BAD histograms.
+
+    On the card the chunked step replays the slab rung's first passes
+    from CUDA graphs that the step function owns: captured at its first
+    call, replayed by later ones; a step function runs one call at a
+    time.
     """
 
     def __init__(
@@ -428,8 +605,13 @@ class FusedAnalysis:
         calls (they are a property of the data)."""
         group_caps = {}
         meta["msd_atoms_per_call"] = a_blk
+        # the slab rung's frame graphs, (padded atoms, K, group size) ->
+        # _FrameGraph, and the RDF sum they add into
+        graphs = {}
+        rdf_sum = None
 
         def chunked_step(*args):
+            nonlocal rdf_sum
             with tracing.span("pipeline.step"):
                 a = StepArgs(*args)
                 n_frames = a.positions.shape[0]
@@ -439,17 +621,31 @@ class FusedAnalysis:
                            if n_frames % d == 0)
                 meta["frames_per_call"] = fpc
                 reruns = meta["reruns"] = dict.fromkeys(RERUNS, 0)
-                sums = _Sums(cfg, n_frames, a.positions.device)
+                dev = a.positions.device
+                sums = _Sums(cfg, n_frames, dev)
                 rung0 = _first_rung(cfg)
+                if rung0 == "slab":
+                    if rdf_sum is None:
+                        rdf_sum = torch.zeros_like(sums.rdf)
+                    sums.rdf = rdf_sum.zero_()
                 for i in range(0, n_frames, fpc):
                     k_cap = group_caps.get(i, self.max_neighbors)
-                    outs = [_frame_pass(cfg, a, f, k_cap, rung=rung0)
-                            for f in range(i, i + fpc)]
-                    with tracing.span("pipeline.sums"):
-                        for out in outs:
-                            sums.rdf += out[0].to(torch.float64)
+                    if rung0 == "slab":
+                        key = (a.positions.shape[1], k_cap, fpc)
+                        graph = graphs.get(key)
+                        if graph is None:
+                            graph = graphs[key] = _FrameGraph(
+                                cfg, *key, sums.rdf)
+                        flags, outs = graph.first_pass(a, i), None
+                    else:
+                        outs = [_frame_pass(cfg, a, f, k_cap, rung=rung0)
+                                for f in range(i, i + fpc)]
+                        with tracing.span("pipeline.sums"):
+                            for out in outs:
+                                sums.rdf += out[0].to(torch.float64)
                     if cfg.with_bad:
-                        flags = torch.stack([o[4] for o in outs])
+                        if outs is not None:
+                            flags = torch.stack([o[4] for o in outs])
                         # dense overflow: this data genuinely needs a
                         # bigger table -- escalate the whole group (BAD/CN
                         # only)
@@ -463,14 +659,18 @@ class FusedAnalysis:
                                     for f in range(i, i + fpc)]
                             flags = torch.stack([o[4] for o in outs])
                     with tracing.span("pipeline.sums"):
-                        for f, out in zip(range(i, i + fpc), outs):
+                        if outs is None:
+                            graph.add_group(sums, i)
+                        for f, out in zip(range(i, i + fpc), outs or ()):
                             sums.add(f, out, with_rdf=False)
 
                 if cfg.with_bad:
                     self._rerun_flagged(cfg, a, sums, reruns)
+                if rung0 == "slab":
+                    sums.rdf = sums.rdf.clone()  # the next call zeroes it
                 return self._finish(a, sums, cfg.n_species, a_blk)
 
-        return chunked_step
+        return _one_call_at_a_time(chunked_step)
 
     def _rerun_flagged(self, cfg: _Config, a: StepArgs, sums: _Sums,
                        reruns: dict):

@@ -931,12 +931,17 @@ def reset_launches():
     _launch_base = tracing.snapshot()
 
 
+def read_counts():
+    """The registry's counters that moved since ``reset_launches``."""
+    from amof_tpu_torch import tracing
+
+    return tracing.diff(tracing.snapshot(), _launch_base)["counts"]
+
+
 def read_launches():
     """Launches of each hand-written kernel since ``reset_launches``
     (the registry's ``launch.<kernel>`` counters)."""
-    from amof_tpu_torch import tracing
-
-    got = tracing.diff(tracing.snapshot(), _launch_base)["counts"]
+    got = read_counts()
     return {name: got.get("launch." + name, 0) for name, _, _ in KERNELS}
 
 
@@ -3097,10 +3102,23 @@ def main():
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     launches = read_launches()
+    moved = read_counts()
     say(f"main path launches: {launches}")
     for name in MAIN_PATH:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the main path")
+    # every frame's first pass launches #1 once, as a graph replay too,
+    # and a capture's eager pass once more (as the card test
+    # test_replays_count_frames_and_launches in
+    # tests/test_torch_fused_graph.py holds on the bench glass)
+    captures = moved.get("pipeline.graph_captures", 0)
+    check(launches["rdf_counts_blocked"] == batch.num_frames + captures,
+          f"main path: {launches['rdf_counts_blocked']} launches of "
+          f"rdf_counts_blocked for {batch.num_frames} frames and "
+          f"{captures} captures")
+    if meta["bad_slab"] is not None:
+        check(moved.get("pipeline.frames_graphed", 0) == batch.num_frames,
+              "main path: not every frame replayed its graph")
     check_outputs(out, meta, batch.num_frames)
     say(f"fused first run (prepare + step, cold): {first:.2f} s")
 

@@ -7,7 +7,8 @@ small glass): one ``pipeline.frame`` a frame and one ``pipeline.prepare``
 a ``prepare``; under ``torch.profiler`` the spans are ranges of the trace,
 nested as they run; without a profiler no range is entered; a crowded
 frame raises the rerun counters and ``meta["reruns"]``, and the outputs
-with a profiler running equal those without.
+with a profiler running equal those without; the CPU replays no frame
+graph, so ``pipeline.frames_graphed`` and its benchmark reader read 0.
 """
 
 import sys
@@ -272,3 +273,26 @@ def test_reruns_are_counted_and_outputs_equal_untraced(case):
     assert out.keys() == traced.keys()
     for name in out:
         np.testing.assert_array_equal(out[name], traced[name], err_msg=name)
+
+
+def test_graphed_frames_counter_reads_zero_on_the_cpu(batch):
+    """The CPU runs the slab rung's frame function eagerly: the counter
+    ``pipeline.frames_graphed`` is there and stays 0, no graph is
+    captured, and the benchmark's reader of the share (the counter over
+    ``pipeline.frames``) reads 0."""
+    from bench_torch import harness
+
+    fa = FusedAnalysis(CUTOFFS, **KW, max_neighbors=8, frames_per_call=2)
+    (_, meta), got = recorded(lambda: fa.run(batch, device="cpu"))
+    assert meta["bad_slab"] is not None
+    counts = tracing.snapshot()["counts"]
+    assert counts["pipeline.frames_graphed"] == 0
+    assert counts["pipeline.frames"] >= batch.num_frames
+    assert got["counts"]["pipeline.frames"] == batch.num_frames
+    assert "pipeline.frames_graphed" not in got["counts"]
+    assert "pipeline.graph_captures" not in got["counts"]
+    assert "pipeline.capture" not in got["spans"]
+    reader = harness.load_file_module(
+        harness.HERE / "metrics" / "fused.graphed_frames_pct.py",
+        "graphed_frames_pct")
+    assert reader.read(None) == 0.0
