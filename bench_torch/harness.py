@@ -6,7 +6,9 @@ per-layer metric is found by name (see ``run.py``'s header):
   configs/<config>.json     the deployment (elements, cell, cutoffs, ...)
   traffic/<traffic>.json    the mix: its ``kind`` names the module in
                             ``kinds/`` that drives the program and holds
-                            the comparison; the rest are its parameters
+                            the reference (``reference/<kind>.py``), the
+                            comparison and the rehearsal size; the rest
+                            are its parameters
   limits/<workload>.json    the limit of each number ``correct`` compares
   metrics/<metric>.py       ``read(trace) -> float | None`` per metric
   work/<kernel>.py          a kernel's operations and bytes (rooflines)

@@ -10,6 +10,8 @@ from __future__ import annotations
 from bench_torch.harness import span
 from bench_torch.reference import fused as ref_fused
 
+REHEARSAL_FRAMES = 8
+
 
 def batch_of(piece):
     from amof_tpu_torch import FrameBatch

@@ -8,8 +8,9 @@ refuses to run without a card.
     python3 bench_torch/rehearse.py [--workload NAME] [--seed N]
 
 Small size: the configuration's network on at most 2 x 2 x 1 node
-cells (``small``) and few frames (``FRAMES``); two pieces a cell. The
-CPU's numbers are no device metrics: device readers find nothing there.
+cells (``small``) and few frames (the kind's ``REHEARSAL_FRAMES``); two
+pieces a cell. The CPU's numbers are no device metrics: device readers
+find nothing there.
 """
 
 from __future__ import annotations
@@ -25,8 +26,6 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from bench_torch import harness  # noqa: E402
-
-FRAMES = {"fused": 8}
 
 
 def small(config, traffic):
@@ -45,7 +44,7 @@ def small(config, traffic):
     for el, per_zn in (("Zn", 1), ("N", 4), ("C", 6), ("H", 6)):
         config["elements"][el]["count"] = per_zn * zn
     config["atoms"] = 17 * zn
-    f = FRAMES[traffic["kind"]] * (2 if zn < 64 else 1)
+    f = harness.kind_module(traffic).REHEARSAL_FRAMES * (2 if zn < 64 else 1)
     traffic["frames_per_piece"] = f
     config["trajectory_frames"] = f
     traffic["pieces"] = 2

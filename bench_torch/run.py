@@ -32,22 +32,33 @@ Lookup by name (``harness.py`` holds the engine). A workload entry of
                             number or None (nothing to read: left out)
   work/<kernel>.py          a kernel's operations and bytes from a unit's
                             inputs and outputs, and its kernel names
-  kinds/<kind>.py           ``Runner(config, traffic, device).unit(piece)``
-                            drives the program; ``reference`` (plain
-                            PyTorch, ``reference/``) and ``compare``
+  kinds/<kind>.py           the mix's ``kind``: ``Runner(config, traffic,
+                            device).unit(piece)`` drives the program;
+                            ``reference`` (plain PyTorch,
+                            ``reference/<kind>.py``), ``compare``, and
+                            ``REHEARSAL_FRAMES`` (frames a piece at
+                            ``rehearse.py``'s size)
 
 To add a configuration: a file under ``configs/`` and an entry under
 ``configs`` in ``BENCHMARK.json``. A mix of an existing kind: a file under
-``traffic/``. A cell: an entry under ``workloads`` and its
-``limits/<workload>.json`` (limits set from readings, see PERF.md). A
-per-layer metric: ``metrics/<name>.py`` and an entry under
-``per_layer``. None of these needs an edit of an existing file.
+``traffic/``. A new kind: ``kinds/<kind>.py`` and ``reference/<kind>.py``
+beside its mix. A cell: an entry under ``workloads``, its
+``limits/<workload>.json`` (limits set from readings, see PERF.md), and its
+name appended to the ``workloads`` of the end-to-end metric it reports
+(``analysis_frames_per_s`` for a cell of per-analysis entry points): that
+list is the one existing line a new cell edits. A per-layer metric:
+``metrics/<name>.py`` and an entry under ``per_layer``. ``run_cell`` reads
+an end-to-end metric by its unit and source: ``frames/s`` on the host
+clock (all the window's frames over its seconds), ``us/frame`` from the
+device trace (the device's busy time over the window's frames), and
+``setup_s``.
 
 Caches: the program builds its kernels into ``amof_tpu_torch/_build/``
 inside the checkout (keyed by a hash of the sources, so only the first
 run of a checkout builds); PyTorch's extension and Triton caches are
 pointed inside the checkout too. ``BENCH_RUN`` is not read. The
-benchmark imports neither jax nor the JAX package.
+benchmark imports neither jax nor the JAX package, and a run that finds
+either loaded once its window has closed exits 3 with no result.
 """
 
 from __future__ import annotations
@@ -70,6 +81,9 @@ for var, sub in (("TORCH_EXTENSIONS_DIR", "torch_extensions"),
 for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
     os.environ[var] = "1"
 sys.path.insert(0, str(ROOT))
+# JAX and the JAX package, by whole top-level module name: none may be
+# loaded in the process once the window has closed
+NOT_LOADED = {"jax", "jaxlib", "flax", "amof_tpu"}
 
 
 def pin_to_one_core():
@@ -129,6 +143,11 @@ def main(argv=None):
     torch.set_num_threads(1)
     result = harness.run_cell(bench, cell, args.seed, args.seconds,
                               bool(args.trace), "cuda", T_START)
+    found = sorted({m.partition(".")[0] for m in sys.modules} & NOT_LOADED)
+    if found:
+        print(f"run.py: the run loaded {', '.join(found)}; the benchmark "
+              "measures the port alone", file=sys.stderr)
+        return 3
     checks = result.pop("checks")
     result["host"] = dict(host_start, mhz_end=host_info(core)["mhz"])
     result["checks"] = checks
