@@ -76,19 +76,43 @@ def volume(cell) -> float:
     return float(abs(np.linalg.det(np.asarray(cell, dtype=np.float64))))
 
 
-def min_widths(cell) -> np.ndarray:
-    """Perpendicular widths of the cell along each lattice direction.
+def cell_widths(cells) -> list:
+    """The smallest width of the cells (one [3, 3] or [F, 3, 3]) across
+    each axis's lattice planes, |a . (b x c)| / |b x c| for x. Half the
+    smallest is where the minimum image by rounding fractional
+    coordinates stops being exact."""
+    cells = np.asarray(cells, np.float64)
+    if cells.ndim == 2:
+        cells = cells[None]
+    widths = []
+    for a in range(3):
+        b, c = (a + 1) % 3, (a + 2) % 3
+        cr = np.cross(cells[:, b], cells[:, c])
+        v = np.abs(np.einsum("fi,fi->f", cells[:, a], cr))
+        widths.append(float((v / np.linalg.norm(cr, axis=1)).min()))
+    return widths
 
-    width_i = V / |a_j x a_k| — the safe upper bound for round-based
+
+def half_cell(cells) -> float:
+    """``rmax`` by the ``half_cell`` rule over the cells (one [3, 3] or
+    [F, 3, 3]): half the smallest perpendicular width. Past it the
+    minimum image by rounding is not exact: a pair with two images
+    inside the cut counts once, and a pair at a fractional separation of
+    1/2 takes its image by the atoms' order. The widths of a diagonal
+    cell are its lengths, taken as they are there: half the smallest
+    length, bit for bit (the quotient above can round it by an ulp)."""
+    cells = np.asarray(cells, np.float64)
+    if np.all(cells == cells * np.eye(3)):
+        return float(np.linalg.norm(cells, axis=-1).min()) / 2
+    return min(cell_widths(cells)) / 2
+
+
+def min_widths(cell) -> np.ndarray:
+    """Perpendicular widths of one cell along each lattice direction
+    (``cell_widths``) — the safe upper bound for round-based
     minimum-image correctness is half the smallest width.
     """
-    cell = np.asarray(cell, dtype=np.float64)
-    vol = abs(np.linalg.det(cell))
-    widths = np.empty(3)
-    for i in range(3):
-        j, k = (i + 1) % 3, (i + 2) % 3
-        widths[i] = vol / np.linalg.norm(np.cross(cell[j], cell[k]))
-    return widths
+    return np.array(cell_widths(cell))
 
 
 def cart_to_frac(positions, cell) -> np.ndarray:

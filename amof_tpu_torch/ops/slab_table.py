@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from amof_tpu_torch.core.cellmath import cell_widths
 from amof_tpu_torch.ops.pair_engine import cn_from_table, inverse_cell, matvec3
 
 
@@ -66,12 +67,7 @@ def slab_plan(cells, rc_max: float, n_atoms: int, chunk: int = 16,
     cells = np.asarray(cells, np.float64)
     if cells.ndim == 2:
         cells = cells[None]
-    widths = []
-    for a in range(3):
-        b, c = (a + 1) % 3, (a + 2) % 3
-        cr = np.cross(cells[:, b], cells[:, c])
-        v = np.abs(np.einsum("fi,fi->f", cells[:, a], cr))
-        widths.append(float((v / np.linalg.norm(cr, axis=1)).min()))
+    widths = cell_widths(cells)
     if rc_max <= 0:
         return None
     nsx = int(widths[0] / rc_max)

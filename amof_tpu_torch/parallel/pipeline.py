@@ -34,8 +34,11 @@ Spans and counters (``amof_tpu_torch.tracing``): ``pipeline.prepare``
 ``bad.angles``), ``pipeline.capture``, ``pipeline.sums``,
 ``pipeline.flags_read``, ``pipeline.rerun``, ``pipeline.msd``,
 ``pipeline.download``; counters ``pipeline.frames``,
-``pipeline.frames_graphed``, ``pipeline.graph_captures`` and the rerun
-tallies ``RERUNS`` (also in ``meta``).
+``pipeline.frames_general_cell`` (first-pass frames of pieces whose
+cells are not all diagonal), ``pipeline.prepares_width_cut``
+(``prepare`` calls whose ``half_cell`` cut fell below half the smallest
+cell length), ``pipeline.frames_graphed``, ``pipeline.graph_captures``
+and the rerun tallies ``RERUNS`` (also in ``meta``).
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import torch
 from amof_tpu_torch import tracing
 from amof_tpu_torch.bad import _enumerate_specs
 from amof_tpu_torch.cn import _cutoff_matrix_for_species, sorted_window
+from amof_tpu_torch.core import cellmath
 from amof_tpu_torch.core.frames import as_frame_batch
 from amof_tpu_torch.data import elements
 from amof_tpu_torch.ops import bad_kernel, msd_kernel, pair_engine, rdf_kernel
@@ -148,6 +152,14 @@ def _frame_math(cfg: _Config, pos, cell, inv, volume, species_idx,
         inv_cell=inv, emit_missed=True,
     )
     return rdf, cn, bad_c, bad_a, flag, missed
+
+
+def _count_frames(cfg: _Config, n_frames: int) -> None:
+    """A step's first-pass frames; on cells that are not all diagonal
+    (the general-cell path) also ``pipeline.frames_general_cell``."""
+    tracing.count("pipeline.frames", n_frames)
+    if not cfg.ortho:
+        tracing.count("pipeline.frames_general_cell", n_frames)
 
 
 def _count_flags(flags) -> int:
@@ -460,8 +472,12 @@ class FusedAnalysis:
             n_species = len(unique)
 
             cells = np.asarray(batch.cell, dtype=np.float32)
-            lengths = np.linalg.norm(cells.astype(np.float64), axis=2)
-            rmax = self.rmax or float(lengths.min()) / 2
+            rmax = self.rmax
+            if not rmax:
+                rmax = cellmath.half_cell(cells)
+                lengths = np.linalg.norm(cells.astype(np.float64), axis=2)
+                if rmax < float(lengths.min()) / 2:  # a sheared cell
+                    tracing.count("pipeline.prepares_width_cut")
             bins = int(rmax // self.dr)
 
             # species-blocked layout upgrades RDF to kernel #1 (histograms
@@ -583,7 +599,7 @@ class FusedAnalysis:
             with tracing.span("pipeline.step"):
                 a = StepArgs(*args)
                 n_frames = a.positions.shape[0]
-                tracing.count("pipeline.frames", n_frames)
+                _count_frames(cfg, n_frames)
                 meta["reruns"] = dict.fromkeys(RERUNS, 0)
                 sums = _Sums(cfg, n_frames, a.positions.device)
                 rung = _first_rung(cfg)
@@ -615,7 +631,7 @@ class FusedAnalysis:
             with tracing.span("pipeline.step"):
                 a = StepArgs(*args)
                 n_frames = a.positions.shape[0]
-                tracing.count("pipeline.frames", n_frames)
+                _count_frames(cfg, n_frames)
                 target = max(self.frames_per_call, 1)
                 fpc = next(d for d in range(min(target, n_frames), 0, -1)
                            if n_frames % d == 0)

@@ -37,6 +37,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from amof_tpu_torch.core.cellmath import cell_widths
 from amof_tpu_torch.core.frames import as_frame_batch
 from amof_tpu_torch.data import elements
 from amof_tpu_torch.ops.pair_engine import matvec3
@@ -309,7 +310,7 @@ class BatchedPore:
         # candidate-work advantage over the one-level window
         dist2 = None
         if self.window == "auto" and dist_window is not None:
-            w0y = grid_kernel.cell_widths(cells)[1]
+            w0y = cell_widths(cells)[1]
             dya = float(np.ceil((dmax + float(radii.max())) / w0y / 5e-3)
                         * 5e-3)
             tvx = next((t for t in (8, 4) if grid[0] % t == 0), None)

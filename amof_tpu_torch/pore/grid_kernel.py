@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from amof_tpu_torch import tracing
+from amof_tpu_torch.core.cellmath import cell_widths
 from amof_tpu_torch.ops.pair_engine import matvec3, sqrt_rn, squared_norm
 
 _F32 = torch.float32
@@ -87,21 +88,6 @@ def fibonacci_sphere(n: int) -> np.ndarray:
     return np.stack(
         [sin_t * np.cos(phi), sin_t * np.sin(phi), cos_t], axis=-1
     ).astype(np.float32)
-
-
-def cell_widths(cells) -> list:
-    """The smallest width of the cells (one [3, 3] or [F, 3, 3]) across
-    each axis's lattice planes, |a . (b x c)| / |b x c| for x."""
-    cells = np.asarray(cells, np.float64)
-    if cells.ndim == 2:
-        cells = cells[None]
-    widths = []
-    for a in range(3):
-        b, c = (a + 1) % 3, (a + 2) % 3
-        cr = np.cross(cells[:, b], cells[:, c])
-        v = np.abs(np.einsum("fi,fi->f", cells[:, a], cr))
-        widths.append(float((v / np.linalg.norm(cr, axis=1)).min()))
-    return widths
 
 
 def ceil128(x: float) -> int:

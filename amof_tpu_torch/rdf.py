@@ -5,8 +5,11 @@ Counterpart of ``amof_tpu/rdf.py`` (API parity with amof/rdf.py): ``Rdf``
 with ``from_trajectory(traj, dr=0.01, rmax='half_cell', device='cuda')``,
 ``.data`` ("r", "X-X", every ordered "A-B" partial, "A-X" row sums),
 ``write_to_file``/``from_file`` with the '.rdf' feather suffix, the
-``rmax='half_cell'`` rule (half the smallest cell *length*, as the
-reference), ``bins = int(rmax // dr)`` and exact shell volumes; the
+``rmax='half_cell'`` rule (half the smallest perpendicular cell
+*width* over the frames, where the minimum image by rounding stops being
+exact; the reference takes half the smallest *length*, the same number
+on a diagonal cell and past that domain on a sheared one),
+``bins = int(rmax // dr)`` and exact shell volumes; the
 deprecated RDF-integral ``CoordinationNumber``,
 ``get_coordination_number`` and ``RdfPlotter``.
 
@@ -34,6 +37,7 @@ import scipy.integrate
 import torch
 
 import amof_tpu_torch.files.path
+from amof_tpu_torch.core.cellmath import half_cell
 from amof_tpu_torch.core.frames import as_frame_batch
 from amof_tpu_torch.core.step import construct_step
 from amof_tpu_torch.data import elements
@@ -101,7 +105,7 @@ def rdf_columns(trajectory, dr=0.01, rmax="half_cell", device="cuda"):
     unique, z_to_idx = _species_table(species)
 
     cells = np.asarray(batch.cell, dtype=np.float64)
-    rmax_half_cell = float(np.linalg.norm(cells, axis=2).min()) / 2
+    rmax_half_cell = half_cell(cells)
     if rmax == "half_cell":
         rmax = rmax_half_cell
     elif rmax > rmax_half_cell:
@@ -153,8 +157,9 @@ class Rdf:
         Args:
             trajectory: Trajectory / list of Frames / FrameBatch.
             dr: bin width in Å.
-            rmax: float in Å or 'half_cell' (half the minimum cell length
-                over all frames; larger values are clamped to it).
+            rmax: float in Å or 'half_cell' (half the smallest
+                perpendicular cell width over all frames; larger values
+                are clamped to it).
         """
         rdf_class = cls()
         rdf_class.compute_rdf(trajectory, dr, rmax, device)

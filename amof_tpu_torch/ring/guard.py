@@ -42,6 +42,7 @@ import logging
 
 import numpy as np
 
+from amof_tpu_torch.core.cellmath import cell_widths
 from amof_tpu_torch.core.frames import Frame
 from amof_tpu_torch.ops.neighbors_host import neighbor_pairs
 
@@ -50,17 +51,6 @@ logger = logging.getLogger(__name__)
 _CLIP = 2  # shift-excursion window per axis: [-2, 2]
 _S = 2 * _CLIP + 1
 _CENTER = (_CLIP * _S + _CLIP) * _S + _CLIP  # linear id of shift (0,0,0)
-
-
-def minimum_cell_width(cell) -> float:
-    """Smallest perpendicular width of the cell (Å)."""
-    cell = np.asarray(cell, np.float64)
-    vol = abs(np.linalg.det(cell))
-    widths = [
-        vol / np.linalg.norm(np.cross(cell[(a + 1) % 3], cell[(a + 2) % 3]))
-        for a in range(3)
-    ]
-    return float(min(widths))
 
 
 def supercell_frame(frame, reps=(2, 2, 2)) -> Frame:
@@ -192,7 +182,7 @@ def certified_max_ring_sizes(frame, cutoff_matrix, species, cap: int):
         return cap + 1, cap + 1
     w = winding_girth_lb(
         i_idx, j_idx, shifts, len(frame), cap,
-        minimum_cell_width(frame.get_cell()), float(dists.max()),
+        min(cell_widths(frame.get_cell())), float(dists.max()),
     )
     return w  # sizes n <= w are exact (misclassification needs a
     #           winding walk of length <= n - 1 < w)
