@@ -12,9 +12,14 @@ Two passes give the same counts:
     kernel #4's table) when the cutoffs are small next to the box; a
     frame whose window missed (or whose table overflowed) is recomputed
     with the full pass, so the choice never changes a result.
-``amof_tpu`` takes the windowed pass only on the CPU backend at >= 2048
-padded atoms (a TPU measurement, amof_tpu/cn.py:118-122); the port keys
-the same rule on the CPU device.
+The port takes the windowed pass on every device at >= 2048 padded atoms
+when ``sorted_window`` gives a window narrower than the frame (BAD's
+rule, ``bad.py``); ``amof_tpu`` keeps it to its CPU backend, a TPU
+measurement (amof_tpu/cn.py:118-122). The frames' miss flags stay on the
+device until every frame has run and are read once a call; the flagged
+frames then rerun with the full pass. Counters ``cn.frames``,
+``cn.frames_windowed`` and ``cn.frames_full`` (``tracing``) say how often
+each pass was kept.
 
 The device work lives in ``cn_columns`` (ordered numpy columns, no
 pandas); the class wraps them in a DataFrame.
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 import amof_tpu_torch.files.path
+from amof_tpu_torch import tracing
 from amof_tpu_torch.core.frames import as_frame_batch
 from amof_tpu_torch.core.step import construct_step
 from amof_tpu_torch.data import elements
@@ -107,26 +113,31 @@ def cn_columns(trajectory, nb_set_and_cutoff, step, device="cuda"):
     cells = np.asarray(batch.cell, dtype=np.float32)
     rc = float(cutoff_matrix.max())
     window = None
-    if dev.type == "cpu" and n_pad >= 2048 and rc > 0:
+    if n_pad >= 2048 and rc > 0:
         window = sorted_window(cells, rc, n_pad, chunk)
 
+    n_frames = batch.num_frames
     pos = torch.from_numpy(positions).to(dev)
     cells_t = torch.from_numpy(np.ascontiguousarray(cells)).to(dev)
     inv = pair_engine.inverse_cell(cells_t)
     sp = torch.from_numpy(species_idx).to(dev)
     cut = torch.from_numpy(cutoff_matrix).to(dev)
-    counts = torch.empty((batch.num_frames, n_species, n_species),
+    counts = torch.empty((n_frames, n_species, n_species),
                          dtype=torch.float32, device=dev)
-    for f in range(batch.num_frames):
-        if window is not None:
-            cn, missed = pair_engine.frame_cn_counts_windowed(
+    full = range(n_frames)
+    if window is not None:
+        missed = torch.empty(n_frames, dtype=torch.bool, device=dev)
+        for f in range(n_frames):
+            counts[f], missed[f] = pair_engine.frame_cn_counts_windowed(
                 pos[f], cells_t[f], sp, cut, n_species, chunk, window,
                 inv_cell=inv[f])
-            if not bool(missed):
-                counts[f] = cn
-                continue
+        full = missed.nonzero().flatten().tolist()  # the call's one wait
+    for f in full:
         counts[f] = pair_engine.frame_cn_counts(
             pos[f], cells_t[f], sp, cut, n_species, chunk, inv_cell=inv[f])
+    tracing.count("cn.frames", n_frames)
+    tracing.count("cn.frames_windowed", n_frames - len(full))
+    tracing.count("cn.frames_full", len(full))
     return cn_table(counts.cpu().numpy(), species, unique, z_to_idx,
                     nb_set_and_cutoff, step)
 

@@ -118,8 +118,9 @@ result from cold processes with and without the warmup); phase
 before it and read after it (RDF on 256 frames: #1; the RDF-integral CN
 on 4: #2; CN on 32; Bad on 256: #3; BadByCn on 32; Bad on the crowded
 4-frame excerpt: #4; WindowMsd on 256; Pore on 32: #5, #6, #7), then
-CN on 32 frames both ways (``cn.cn_columns``' full pass on the card and
-the windowed pass through kernel #4, forced there; columns equal); phase 5
+CN on 32 frames both ways (the full O(N^2) pass, ``pair_engine.
+frame_cn_counts`` a frame, and ``cn.cn_columns``, which takes the
+windowed pass through kernel #4; columns equal, its counters printed); phase 5
 compares every entry point's columns on the card and on the CPU on a
 2048-atom excerpt.
 
@@ -2817,7 +2818,7 @@ def entry_points(batch, box, pb, fused_out, fused_meta, dev, card):
         ("rdf_cn", 4, ("rdf_counts",),
          lambda: rdf.rdf_cn_columns(excerpt(batch, 4), CUTOFFS, steps[:4],
                                     device=dev)),
-        ("cn", 32, (),
+        ("cn", 32, ("window_table",),
          lambda: cn.cn_columns(excerpt(batch, 32), CUTOFFS, steps[:32],
                                device=dev)),
         ("bad", 256, ("window_table_slab",),
@@ -2887,27 +2888,21 @@ def entry_points(batch, box, pb, fused_out, fused_meta, dev, card):
 
 
 def cn_passes(batch, dev, card, n_frames=32):
-    """``cn.cn_columns`` on the first ``n_frames`` frames as a user calls
-    it on the card (the O(N^2) full pass), and the same frames through
-    the windowed pass (``pair_engine.frame_cn_counts_windowed``: sorted
-    windows and kernel #4 at K 32, the full pass again for a frame it
-    flags), as ``cn_columns`` takes it on the CPU; the columns must be
-    equal. Host clock around a synchronize, the full pass timed first.
-    Returns the times and the frames that fell back."""
+    """The first ``n_frames`` frames through the full O(N^2) pass
+    (``pair_engine.frame_cn_counts`` a frame, called directly) and
+    through ``cn.cn_columns`` as a user calls it on the card (the windowed
+    pass: sorted windows and kernel #4 at K 32, the full pass again for
+    the frames it flags); the columns must be equal. Host clock around a
+    synchronize, the full pass timed first. Returns the times and the
+    ``cn.*`` counters of the ``cn_columns`` call."""
     import numpy as np
     import torch
 
-    from amof_tpu_torch import cn
+    from amof_tpu_torch import cn, tracing
     from amof_tpu_torch.ops import pair_engine
 
     sub = excerpt(batch, n_frames)
     steps = np.arange(n_frames)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    full = cn.cn_columns(sub, CUTOFFS, steps, device=dev)
-    torch.cuda.synchronize()
-    t_full = time.perf_counter() - t0
-
     species = np.asarray(sub.species)
     unique, z_to_idx = cn._species_table(species)
     cut_np = cn._cutoff_matrix_for_species(CUTOFFS, unique, z_to_idx)
@@ -2919,39 +2914,43 @@ def cn_passes(batch, dev, card, n_frames=32):
     cells = np.asarray(sub.cell, dtype=np.float32)
     window = cn.sorted_window(cells, float(cut_np.max()), n_pad, chunk)
     check(window is not None, "the bench frames should take a window")
+    s = len(unique)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     pos = torch.from_numpy(positions).to(dev)
     cells_t = torch.from_numpy(np.ascontiguousarray(cells)).to(dev)
     inv = pair_engine.inverse_cell(cells_t)
     sp = torch.from_numpy(species_idx).to(dev)
     cut = torch.from_numpy(cut_np).to(dev)
-    s = len(unique)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     counts = torch.empty((n_frames, s, s), dtype=torch.float32, device=dev)
-    fell_back = 0
     for f in range(n_frames):
-        cnt, missed = pair_engine.frame_cn_counts_windowed(
-            pos[f], cells_t[f], sp, cut, s, chunk, window, inv_cell=inv[f])
-        if bool(missed):
-            fell_back += 1
-            cnt = pair_engine.frame_cn_counts(pos[f], cells_t[f], sp, cut, s,
-                                              chunk, inv_cell=inv[f])
-        counts[f] = cnt
-    windowed = cn.cn_table(counts.cpu().numpy(), species, unique, z_to_idx,
-                           CUTOFFS, steps)
+        counts[f] = pair_engine.frame_cn_counts(pos[f], cells_t[f], sp, cut,
+                                                s, chunk, inv_cell=inv[f])
+    full = cn.cn_table(counts.cpu().numpy(), species, unique, z_to_idx,
+                       CUTOFFS, steps)
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+
+    before = tracing.snapshot()
+    t0 = time.perf_counter()
+    windowed = cn.cn_columns(sub, CUTOFFS, steps, device=dev)
     torch.cuda.synchronize()
     t_win = time.perf_counter() - t0
+    got = tracing.diff(tracing.snapshot(), before)["counts"]
+    counters = {k: got.get(k, 0)
+                for k in ("cn.frames", "cn.frames_windowed", "cn.frames_full")}
     for key, col in full.items():
         check(np.array_equal(windowed[key], col),
-              f"cn column {key}: windowed pass != full pass")
-    say(f"cn passes ({n_frames} frames): full pass (cn.cn_columns) "
-        f"{t_full:.3f} s = {1e3 * t_full / n_frames:.2f} ms/frame; windowed "
-        f"pass (kernel #4 at K {pair_engine.CN_WINDOW_SLOTS}, chunk {chunk}, "
-        f"W {window}) {t_win:.3f} s = {1e3 * t_win / n_frames:.2f} ms/frame, "
-        f"{fell_back} frames fell back to the full pass; columns equal on "
-        f"{card}")
+              f"cn column {key}: cn_columns != full pass")
+    check(counters["cn.frames"] == n_frames, f"cn counters {counters}")
+    say(f"cn passes ({n_frames} frames): full pass (frame_cn_counts) "
+        f"{t_full:.3f} s = {1e3 * t_full / n_frames:.2f} ms/frame; "
+        f"cn.cn_columns (windowed, kernel #4 at K "
+        f"{pair_engine.CN_WINDOW_SLOTS}, chunk {chunk}, W {window}) "
+        f"{t_win:.3f} s = {1e3 * t_win / n_frames:.2f} ms/frame; counters "
+        f"{counters}; columns equal on {card}")
     return {"full_s": t_full, "windowed_s": t_win, "frames": n_frames,
-            "fell_back": fell_back, "chunk": chunk, "window": window}
+            "counters": counters, "chunk": chunk, "window": window}
 
 
 def entry_cpu_parity(dev, n_atoms=2048):
