@@ -12,11 +12,12 @@ labeled (atom_triple x cn x theta) array with 'total'/'partial'
 normalization, serialized as netCDF (``labeled.py``); ``CoreBad.bad_BAB``
 is the host-side per-frame helper.
 
-``_compute_counts`` runs the retry ladder of ``amof_tpu`` over the whole
-trajectory: the 2-level slab table (kernel #3, on the card only), then
-the 1-level sorted window (kernel #4), then the full table, then K
-doubling from 16 up to 512, after which it raises. Neighbour capacity
-overflow or a window miss therefore never drops an angle silently.
+``_compute_counts`` runs on the fused step's frame pass and ladder
+(``ops/frame_table.py``): every frame once at K 16 on the table rule's
+first rung, each adding its counts unless its flag is up, the flags read
+once a call; then only the flagged frames go up the rerun ladder, K
+doubling to 1024, after which it raises. Neighbour capacity overflow or
+a window miss therefore never drops an angle silently.
 
 The device work lives in pandas-free functions (``bad_columns``,
 ``bad_by_cn_dataset``); ``Bad`` wraps its columns in a DataFrame (pandas
@@ -25,6 +26,7 @@ is imported inside the class).
 
 from __future__ import annotations
 
+import functools
 import logging
 
 import numpy as np
@@ -32,52 +34,11 @@ import torch
 
 import amof_tpu_torch.files.path
 from amof_tpu_torch import labeled
-from amof_tpu_torch.cn import _cutoff_matrix_for_species, sorted_window
 from amof_tpu_torch.core.frames import as_frame_batch
-from amof_tpu_torch.data import elements
-from amof_tpu_torch.ops import bad_kernel, pair_engine, slab_table
-from amof_tpu_torch.rdf import _species_table
+from amof_tpu_torch.ops import bad_kernel, frame_table
+from amof_tpu_torch.warmup import resolve_device
 
 logger = logging.getLogger(__name__)
-
-_FIRST_CAPACITY = 16
-_MAX_NEIGHBOR_CAPACITY = 512
-
-
-def _enumerate_specs(nb_set_and_cutoff, unique):
-    """Wildcard-aware (center, outer) pair enumeration + column names.
-
-    Mirrors amof/bad.py:122-133: "X" is appended iff the cutoff spec
-    covers every species present; pairs with identical center and outer
-    species are excluded except ("X", "X").
-    """
-    present = sorted(
-        {
-            elements.atomic_numbers[s]
-            for nb_set in nb_set_and_cutoff
-            for s in nb_set.split("-")
-        }
-    )
-    epu: list = list(present)
-    if len(epu) == len(unique):
-        epu.append("X")
-    pairs = [
-        (a, b)
-        for b in epu
-        for a in epu
-        if (a not in [b, "X"] or ((a, b) == ("X", "X")))
-    ]
-    names = []
-    for a, b in pairs:
-        sym = lambda x: "X" if x == "X" else elements.symbol_of(x)
-        names.append("-".join([sym(b), sym(a), sym(b)]))
-    return pairs, names
-
-
-def _slab_rung(dev: torch.device) -> bool:
-    """The 2-level slab rung runs on the card only (``amof_tpu`` takes it
-    on accelerators only, amof_tpu/bad.py:120)."""
-    return dev.type == "cuda"
 
 
 def bad_table(counts, names, theta, dtheta):
@@ -96,82 +57,63 @@ def _compute_counts(batch, nb_set_and_cutoff, dtheta, by_cn=False,
                     device="cuda"):
     """Accumulated angle counts [n_specs, cn_slots, bins+1] over all
     frames, the spec names and theta. cn_slots == 1 unless by_cn (the
-    BadByCn axis, K + 1 at the capacity the ladder ended on)."""
-    from amof_tpu_torch.parallel.pipeline import resolve_device
+    BadByCn axis, K + 1 at the largest capacity a frame ended on)."""
+    unique, z_to_idx, plan, a = frame_table.entry_table(
+        batch, nb_set_and_cutoff, resolve_device(device), with_bad=True)
+    pairs, names = frame_table.enumerate_specs(nb_set_and_cutoff, unique)
+    specs = frame_table.spec_indices(pairs, z_to_idx)
+    bins = int(180 // dtheta) + 1
+    theta = np.arange(bins) * dtheta + dtheta / 2
+    s = plan.n_species
 
-    dev = resolve_device(device)
-    species = np.asarray(batch.species)
-    unique, z_to_idx = _species_table(species)
-    cutoff_matrix = _cutoff_matrix_for_species(nb_set_and_cutoff, unique,
-                                               z_to_idx)
-    pairs, names = _enumerate_specs(nb_set_and_cutoff, unique)
-    specs = tuple(
-        (
-            -1 if a == "X" else int(z_to_idx[a]),
-            -1 if b == "X" else int(z_to_idx[b]),
+    def histograms(k):
+        """float64 (concrete, center_any) of a frame pass at K ``k``."""
+        c = k + 1 if by_cn else 1
+        return (a.positions.new_zeros((s, s, c, bins), dtype=torch.float64),
+                a.positions.new_zeros((s, c, bins), dtype=torch.float64))
+
+    def run(f, k, rung, out):
+        """Frame ``f``'s counts into ``out`` (zeroed first); its flag and
+        window miss."""
+        for o in out:
+            o.zero_()
+        _, _, flag, missed = frame_table.frame_pass(
+            plan, a.positions[f], a.cells[f], a.inv_cells[f],
+            a.species_idx, a.cutoff_matrix, k, rung, float(dtheta), bins,
+            by_cn=by_cn, out=out)
+        return flag, missed, out
+
+    k0 = frame_table.FIRST_CAPACITY
+    sums, frame = histograms(k0), histograms(k0)
+    flags = []
+    for f in range(a.positions.shape[0]):
+        flag, _, _ = run(f, k0, plan.first_rung(), frame)
+        frame_table.add_unflagged(*sums, *frame, flag)
+        flags.append(flag)
+    flagged = torch.stack(flags).nonzero().flatten().tolist()  # one wait
+
+    # one buffer a round of the ladder: S^2 (K+1) bins at K 1024
+    scratch = functools.lru_cache(maxsize=1)(histograms)
+
+    def rerun(f, k, rung):
+        return run(f, k, rung, scratch(k))
+
+    def keep(f, out):
+        nonlocal sums
+        wider = out[0].shape[-2] - sums[0].shape[-2]
+        if wider:  # a frame that ends at a larger K: a wider cn axis
+            sums = [torch.nn.functional.pad(acc, (0, 0, 0, wider))
+                    for acc in sums]
+        for acc, o in zip(sums, out):
+            acc += o
+
+    if frame_table.rerun_flagged(flagged, k0, plan.window, rerun, keep):
+        raise RuntimeError(
+            "neighbor capacity exceeded; cutoffs likely unphysical"
         )
-        for a, b in pairs
-    )
-    bins_ref = int(180 // dtheta)
-    n_hist_bins = bins_ref + 1
-    theta = np.arange(bins_ref + 1) * dtheta + dtheta / 2
-
-    positions, species_idx = pair_engine.pad_atoms(
-        np.asarray(batch.positions, dtype=np.float32),
-        z_to_idx[species].astype(np.int32))
-    n_pad = positions.shape[1]
-    chunk = pair_engine._pick_chunk(n_pad)
-    cells = np.asarray(batch.cell, dtype=np.float32)
-    n_species = len(unique)
-
-    # sorted-window table when the cutoffs are small next to the box; a
-    # miss raises the overflow flag and the ladder below drops to the
-    # full table. The 2-level slab upgrade runs on the card.
-    rc = float(cutoff_matrix.max())
-    window = None
-    if n_pad >= 2048 and rc > 0:
-        window = sorted_window(cells, rc, n_pad, chunk)
-    slab = None
-    if window is not None and _slab_rung(dev):
-        slab = slab_table.slab_plan(cells, rc, n_pad, positions=positions,
-                                    species_idx=species_idx)
-
-    pos = torch.from_numpy(positions).to(dev)
-    cells_t = torch.from_numpy(np.ascontiguousarray(cells)).to(dev)
-    inv = pair_engine.inverse_cell(cells_t)
-    sp = torch.from_numpy(species_idx).to(dev)
-    cut = torch.from_numpy(cutoff_matrix).to(dev)
-    max_neighbors = _FIRST_CAPACITY
-    while True:
-        conc, center_any, overflow = bad_kernel.trajectory_bad_counts(
-            pos, cells_t, sp, cut, n_species, float(dtheta), n_hist_bins,
-            max_neighbors, chunk, by_cn=by_cn, window=window, slab=slab,
-            inv_cells=inv,
-        )
-        if not bool(overflow):
-            break
-        if slab is not None:
-            # could be a slab capacity/coverage miss: retry 1-level
-            slab = None
-            continue
-        if window is not None:
-            # could be a window miss rather than capacity: drop the
-            # window first, then grow capacity
-            window = None
-            continue
-        max_neighbors *= 2
-        if max_neighbors > _MAX_NEIGHBOR_CAPACITY:
-            raise RuntimeError(
-                "neighbor capacity exceeded; cutoffs likely unphysical"
-            )
-        logger.info(
-            "neighbor capacity overflow; retrying with max_neighbors=%s",
-            max_neighbors,
-        )
-    conc = conc.cpu().numpy()
-    center_any = center_any.cpu().numpy()
+    conc, center_any = (x.cpu().numpy() for x in sums)
     counts = np.stack(
-        [bad_kernel.select_spec_counts(conc, center_any, s) for s in specs]
+        [bad_kernel.select_spec_counts(conc, center_any, sp) for sp in specs]
     )
     return counts, names, theta
 

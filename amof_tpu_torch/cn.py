@@ -12,12 +12,12 @@ Two passes give the same counts:
     kernel #4's table) when the cutoffs are small next to the box; a
     frame whose window missed (or whose table overflowed) is recomputed
     with the full pass, so the choice never changes a result.
-The port takes the windowed pass on every device at >= 2048 padded atoms
-when ``sorted_window`` gives a window narrower than the frame (BAD's
-rule, ``bad.py``); ``amof_tpu`` keeps it to its CPU backend, a TPU
-measurement (amof_tpu/cn.py:118-122). The frames' miss flags stay on the
-device until every frame has run and are read once a call; the flagged
-frames then rerun with the full pass. Counters ``cn.frames``,
+The port takes the windowed pass on every device whenever the table rule
+of ``ops/frame_table.py`` gives a window (the fused step's and BAD's
+rule); ``amof_tpu`` keeps it to its CPU backend, a TPU measurement
+(amof_tpu/cn.py:118-122). The frames' miss flags stay on the device
+until every frame has run and are read once a call; the flagged frames
+then rerun with the full pass. Counters ``cn.frames``,
 ``cn.frames_windowed`` and ``cn.frames_full`` (``tracing``) say how often
 each pass was kept.
 
@@ -37,42 +37,10 @@ from amof_tpu_torch import tracing
 from amof_tpu_torch.core.frames import as_frame_batch
 from amof_tpu_torch.core.step import construct_step
 from amof_tpu_torch.data import elements
-from amof_tpu_torch.ops import pair_engine
-from amof_tpu_torch.rdf import _species_table
+from amof_tpu_torch.ops import frame_table, pair_engine
+from amof_tpu_torch.warmup import resolve_device
 
 logger = logging.getLogger(__name__)
-
-
-def format_cutoff(nb_set_and_cutoff):
-    """{'Zn-N': 2.5, ...} -> {(30, 7): 2.5, ...} (amof/atom.py:48-70)."""
-    return {
-        tuple(elements.atomic_numbers[s] for s in nn_set.split("-")): cutoff
-        for nn_set, cutoff in nb_set_and_cutoff.items()
-    }
-
-
-def _cutoff_matrix_for_species(nb_set_and_cutoff, unique, z_to_idx):
-    """[S, S] symmetric cutoff matrix over dense species indices."""
-    n_species = len(unique)
-    mat = np.zeros((n_species, n_species), dtype=np.float32)
-    for (a, b), cutoff in format_cutoff(nb_set_and_cutoff).items():
-        ia, ib = int(z_to_idx[a]), int(z_to_idx[b])
-        mat[ia, ib] = cutoff
-        mat[ib, ia] = cutoff
-    return mat
-
-
-def sorted_window(cells, rc: float, n_pad: int, chunk: int):
-    """The 1-level sorted window sized from the density and the largest
-    cutoff (amof_tpu/cn.py:127-136, bad.py:105-115), or None when it
-    would not be narrower than the frame."""
-    c64 = np.asarray(cells, np.float64)
-    bxc = np.cross(c64[:, 1], c64[:, 2])
-    w0 = float((np.abs(np.einsum("fi,fi->f", c64[:, 0], bxc))
-                / np.linalg.norm(bxc, axis=1)).min())
-    est = 1.6 * n_pad * 2.0 * rc / max(w0, 1e-9) + 64
-    window = int(-(-est // 128) * 128)
-    return None if chunk + 2 * window >= n_pad else window
 
 
 def cn_table(counts, species, unique, z_to_idx, nb_set_and_cutoff, step):
@@ -94,51 +62,32 @@ def cn_table(counts, species, unique, z_to_idx, nb_set_and_cutoff, step):
 def cn_columns(trajectory, nb_set_and_cutoff, step, device="cuda"):
     """Per-frame mean coordination numbers as ordered numpy columns (what
     ``CoordinationNumber.from_trajectory`` puts in ``.data``)."""
-    from amof_tpu_torch.parallel.pipeline import resolve_device
-
-    dev = resolve_device(device)
     batch = as_frame_batch(trajectory)
-    species = np.asarray(batch.species)
-    unique, z_to_idx = _species_table(species)
-    n_species = len(unique)
     logger.info("Start computing coordination number for %s frames",
                 batch.num_frames)
-    cutoff_matrix = _cutoff_matrix_for_species(nb_set_and_cutoff, unique,
-                                               z_to_idx)
-    positions, species_idx = pair_engine.pad_atoms(
-        np.asarray(batch.positions, dtype=np.float32),
-        z_to_idx[species].astype(np.int32))
-    n_pad = positions.shape[1]
-    chunk = pair_engine._pick_chunk(n_pad)
-    cells = np.asarray(batch.cell, dtype=np.float32)
-    rc = float(cutoff_matrix.max())
-    window = None
-    if n_pad >= 2048 and rc > 0:
-        window = sorted_window(cells, rc, n_pad, chunk)
-
+    unique, z_to_idx, plan, a = frame_table.entry_table(
+        batch, nb_set_and_cutoff, resolve_device(device), with_bad=False)
+    n_species, chunk, window = plan.n_species, plan.chunk, plan.window
     n_frames = batch.num_frames
-    pos = torch.from_numpy(positions).to(dev)
-    cells_t = torch.from_numpy(np.ascontiguousarray(cells)).to(dev)
-    inv = pair_engine.inverse_cell(cells_t)
-    sp = torch.from_numpy(species_idx).to(dev)
-    cut = torch.from_numpy(cutoff_matrix).to(dev)
     counts = torch.empty((n_frames, n_species, n_species),
-                         dtype=torch.float32, device=dev)
+                         dtype=torch.float32, device=a.positions.device)
     full = range(n_frames)
     if window is not None:
-        missed = torch.empty(n_frames, dtype=torch.bool, device=dev)
+        missed = torch.empty(n_frames, dtype=torch.bool,
+                             device=a.positions.device)
         for f in range(n_frames):
             counts[f], missed[f] = pair_engine.frame_cn_counts_windowed(
-                pos[f], cells_t[f], sp, cut, n_species, chunk, window,
-                inv_cell=inv[f])
+                a.positions[f], a.cells[f], a.species_idx, a.cutoff_matrix,
+                n_species, chunk, window, inv_cell=a.inv_cells[f])
         full = missed.nonzero().flatten().tolist()  # the call's one wait
     for f in full:
         counts[f] = pair_engine.frame_cn_counts(
-            pos[f], cells_t[f], sp, cut, n_species, chunk, inv_cell=inv[f])
+            a.positions[f], a.cells[f], a.species_idx, a.cutoff_matrix,
+            n_species, chunk, inv_cell=a.inv_cells[f])
     tracing.count("cn.frames", n_frames)
     tracing.count("cn.frames_windowed", n_frames - len(full))
     tracing.count("cn.frames_full", len(full))
-    return cn_table(counts.cpu().numpy(), species, unique, z_to_idx,
+    return cn_table(counts.cpu().numpy(), batch.species, unique, z_to_idx,
                     nb_set_and_cutoff, step)
 
 

@@ -31,14 +31,9 @@ from amof_tpu_torch.core.step import construct_step
 from amof_tpu_torch.data import elements
 from amof_tpu_torch.ops import msd_kernel
 from amof_tpu_torch.ops.pair_engine import inverse_cell
+from amof_tpu_torch.warmup import resolve_device
 
 logger = logging.getLogger(__name__)
-
-
-def _device(device):
-    from amof_tpu_torch.parallel.pipeline import resolve_device
-
-    return resolve_device(device)
 
 
 def msd_windows(n_frames: int, delta_time=100, max_time="half", timestep=1,
@@ -73,7 +68,7 @@ def msd_columns(trajectory, window, time, unwrap=False, origin_policy="amof",
                 device="cuda"):
     """Windowed MSD as ordered numpy columns ("Time", one per species,
     "X"): what ``WindowMsd.from_trajectory`` puts in ``.data``."""
-    dev = _device(device)
+    dev = resolve_device(device)
     batch = as_frame_batch(trajectory)
     species = np.asarray(batch.species)
     unique = sorted(set(species.tolist()))
@@ -124,7 +119,7 @@ def _species_msd(positions, cells):
 
 def direct_msd_columns(trajectory, step, device="cuda"):
     """DirectMsd's ordered numpy columns ("Step", "X", one per species)."""
-    dev = _device(device)
+    dev = resolve_device(device)
     batch = as_frame_batch(trajectory)
     species = np.asarray(batch.species)
     positions = torch.from_numpy(np.asarray(batch.positions)).to(dev)
@@ -251,7 +246,7 @@ class DirectMsd(Msd):
                             device="cuda"):
         """Direct MSD of one species (or of all atoms) vs frame 0 (parity:
         amof/msd.py:84-108; orthogonal cells only): float64 numpy [F]."""
-        dev = _device(device)
+        dev = resolve_device(device)
         batch = as_frame_batch(trajectory)
         positions = np.asarray(batch.positions)
         if atomic_number is not None:

@@ -201,31 +201,3 @@ def select_spec_counts(concrete, center_any, spec):
         return center_any[a]
     return center_any.sum(axis=0)
 
-
-def trajectory_bad_counts(positions, cells, species_idx, cutoff_matrix,
-                          n_species: int, dtheta: float, bins: int,
-                          max_neighbors: int = 24, chunk: int = 256,
-                          by_cn: bool = False, window: int = None, slab=None,
-                          inv_cells=None):
-    """Angle histograms summed over frames, in float64 on the device.
-    positions [F, N, 3], cells [F, 3, 3]. Returns (concrete f64[S, S, C,
-    bins], center_any f64[S, C, bins], overflow bool[]: some frame's
-    table overflowed K or missed its window, and its histograms are
-    incomplete)."""
-    if inv_cells is None:
-        inv_cells = inverse_cell(cells)
-    dev = positions.device
-    cn_slots = max_neighbors + 1 if by_cn else 1
-    conc = torch.zeros((n_species, n_species, cn_slots, bins),
-                       dtype=torch.float64, device=dev)
-    any_ = torch.zeros((n_species, cn_slots, bins), dtype=torch.float64,
-                       device=dev)
-    overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    for f in range(positions.shape[0]):
-        _, _, flag = frame_bad_counts(
-            positions[f], cells[f], species_idx, cutoff_matrix, n_species,
-            dtheta, bins, max_neighbors, chunk, window=window, slab=slab,
-            inv_cell=inv_cells[f], by_cn=by_cn, out=(conc, any_),
-        )
-        overflow |= flag
-    return conc, any_, overflow

@@ -16,17 +16,20 @@ Frames run in a loop on the device; frame sums accumulate in float64 on
 the device (the JAX package's Neumaier carries existed only because f64
 is slow on a TPU). There is no mesh: the step is single-device.
 
-A frame whose neighbour table overflowed K (or whose window missed)
-contributes nothing to the BAD histograms in its first pass and is rerun
-at doubled capacity, so no angle is ever dropped silently.
+The table plan, the frame pass and the rerun ladder are
+``ops/frame_table.py``'s, shared with the BAD and CN entry points. A
+frame whose neighbour table overflowed K (or whose window missed)
+contributes nothing to the BAD histograms in its first pass; with
+``frames_per_call`` it is rerun up the ladder, so no angle is ever
+dropped silently.
 
-On the card the chunked step's first pass on the slab rung replays one
-CUDA graph a frame (``_FrameGraph``): some 300 launches and no wait for
-the card, where the eager pass paid ~4 ms of host dispatch a frame for
+On the card the step's first pass on the slab rung replays one CUDA
+graph a frame (``_FrameGraph``): some 300 launches and no wait for the
+card, where the eager pass paid ~4 ms of host dispatch a frame for
 ~0.8 ms of device work. A step function owns its graphs: one capture
 for each K its groups start at, at its first call. Every other pass
-(escalated groups, the rerun ladder, the other rungs, the monolithic
-step, the CPU) runs eagerly.
+(escalated groups, the rerun ladder, the other rungs, the CPU) runs
+eagerly.
 
 Spans and counters (``amof_tpu_torch.tracing``): ``pipeline.prepare``
 (``.layout``, ``.slab_plan``, ``.upload``), ``pipeline.step``,
@@ -54,34 +57,18 @@ import numpy as np
 import torch
 
 from amof_tpu_torch import tracing
-from amof_tpu_torch.bad import _enumerate_specs
-from amof_tpu_torch.cn import _cutoff_matrix_for_species, sorted_window
 from amof_tpu_torch.core import cellmath
 from amof_tpu_torch.core.frames import as_frame_batch
 from amof_tpu_torch.data import elements
-from amof_tpu_torch.ops import bad_kernel, msd_kernel, pair_engine, rdf_kernel
-from amof_tpu_torch.rdf import _species_table
-from amof_tpu_torch.warmup import after_warmup, warmup
+from amof_tpu_torch.ops import frame_table, msd_kernel, pair_engine
+from amof_tpu_torch.warmup import after_warmup, resolve_device, warmup
 
 logger = logging.getLogger(__name__)
 
-MAX_RERUN_CAPACITY = 1024  # the retry ladder's K bound
 # rerun tallies of one step (meta["reruns"]; counters "pipeline.<key>"):
 # whole-group K doublings, frame passes of the per-frame ladder, frames
 # that reached its full-table rung
 RERUNS = ("groups_escalated", "frames_rerun", "frames_full_table")
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device for ``device``; raises for CUDA without a card (the
-    port never falls back to the CPU on its own)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' was requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' to run the plain PyTorch versions"
-        )
-    return dev
 
 
 class StepArgs(NamedTuple):
@@ -96,23 +83,14 @@ class StepArgs(NamedTuple):
 
 
 class _Config(NamedTuple):
-    n_species: int
+    table: frame_table.TablePlan
     bins: int
     dr: float
     bad_bins: int
     dtheta: float
-    chunk: int
     blocked: bool
     ortho: bool
-    bad_window: Optional[int]
-    bad_slab: object  # slab_table.SlabPlan or None
     with_bad: bool
-
-
-def _first_rung(cfg: _Config) -> str:
-    if cfg.bad_slab is not None:
-        return "slab"
-    return "window" if cfg.bad_window is not None else "full"
 
 
 def _frame_pass(cfg: _Config, a: StepArgs, f: int, k_cap: int,
@@ -129,7 +107,7 @@ def _frame_pass(cfg: _Config, a: StepArgs, f: int, k_cap: int,
 def _frame_math(cfg: _Config, pos, cell, inv, volume, species_idx,
                 cutoff_matrix, k_cap: int, with_rdf: bool, rung: str):
     """``_frame_pass`` on one frame's tensors (no span of its own)."""
-    s = cfg.n_species
+    s = cfg.table.n_species
     rdf = None
     if with_rdf:
         with tracing.span("pipeline.frame.rdf"):
@@ -139,17 +117,14 @@ def _frame_math(cfg: _Config, pos, cell, inv, volume, species_idx,
             )
     if not cfg.with_bad:
         cn = pair_engine.frame_cn_counts(
-            pos, cell, species_idx, cutoff_matrix, s, cfg.chunk,
+            pos, cell, species_idx, cutoff_matrix, s, cfg.table.chunk,
             inv_cell=inv,
         )
         return rdf, cn, None, None, torch.zeros(
             (), dtype=torch.bool, device=pos.device), None
-    bad_c, bad_a, flag, cn, missed = bad_kernel.frame_bad_counts(
-        pos, cell, species_idx, cutoff_matrix, s, cfg.dtheta,
-        cfg.bad_bins, k_cap, cfg.chunk,
-        window=cfg.bad_window if rung in ("slab", "window") else None,
-        emit_cn=True, slab=cfg.bad_slab if rung == "slab" else None,
-        inv_cell=inv, emit_missed=True,
+    bad_c, bad_a, flag, cn, missed = frame_table.frame_pass(
+        cfg.table, pos, cell, inv, species_idx, cutoff_matrix, k_cap, rung,
+        cfg.dtheta, cfg.bad_bins, emit_cn=True,
     )
     return rdf, cn, bad_c, bad_a, flag, missed
 
@@ -178,7 +153,7 @@ class _Sums:
     """float64 device accumulators of the frame sums."""
 
     def __init__(self, cfg: _Config, n_frames: int, device):
-        s, dev = cfg.n_species, device
+        s, dev = cfg.table.n_species, device
         self.rdf = torch.zeros((s, s, cfg.bins), dtype=torch.float64,
                                device=dev)
         shape_c = (s, s, 1, cfg.bad_bins) if cfg.with_bad else (1,)
@@ -190,15 +165,12 @@ class _Sums:
         self.flag = torch.zeros(n_frames, dtype=torch.bool, device=dev)
 
     def add_bad(self, bad_c, bad_a, flag):
-        # a flagged frame contributes NOTHING (self-masked, no host sync)
-        keep = (~flag).to(torch.float64)
-        self.bad_c += bad_c.to(torch.float64) * keep
-        self.bad_a += bad_a.to(torch.float64) * keep
+        frame_table.add_unflagged(self.bad_c, self.bad_a, bad_c, bad_a, flag)
 
-    def add(self, f, out, with_rdf=True):
-        rdf, cn, bad_c, bad_a, flag, _ = out
-        if with_rdf:
-            self.rdf += rdf.to(torch.float64)
+    def add(self, f, out):
+        """Frame ``f``'s CN row, flag and BAD counts (its RDF is added
+        apart)."""
+        _, cn, bad_c, bad_a, flag, _ = out
         self.cn[f] = cn
         self.flag[f] = flag
         if bad_c is not None:
@@ -228,7 +200,7 @@ class _FrameGraph:
     def __init__(self, cfg: _Config, n_pad: int, k_cap: int, fpc: int,
                  rdf: torch.Tensor):
         self.device = dev = rdf.device
-        s, f32 = cfg.n_species, torch.float32
+        s, f32 = cfg.table.n_species, torch.float32
         self.cfg, self.k_cap, self.fpc = cfg, k_cap, fpc
         self.pos = torch.zeros((n_pad, 3), dtype=f32, device=dev)
         self.cell = torch.zeros((3, 3), dtype=f32, device=dev)
@@ -409,19 +381,18 @@ def _msd(a: StepArgs, n_species: int, origin_policy: str, a_blk: int):
 class FusedAnalysis:
     """Configurable fused RDF+CN(+BAD)(+MSD) step on one device.
 
-    ``frames_per_call`` groups frames (the chunked step): a group where
-    more than half the frames overflow K is rerun whole at doubled K
-    (remembered for the group); single flagged frames rerun alone at
-    doubled K on the 1-level window, then on the full table when the
-    window itself missed. MSD then runs in atom blocks of
-    ``msd_atoms_per_call`` atoms. Without ``frames_per_call`` the step is
-    one pass with no reruns: flagged frames are reported in
-    ``bad_overflow`` and left out of the BAD histograms.
+    ``frames_per_call`` groups frames: a group where more than half the
+    frames overflow K is rerun whole at doubled K (remembered for the
+    group); single flagged frames then go up ``frame_table``'s rerun
+    ladder. Without ``frames_per_call`` the step is one group of every
+    frame at ``max_neighbors`` with no reruns: flagged frames are
+    reported in ``bad_overflow`` and left out of the BAD histograms.
+    MSD runs in atom blocks of ``msd_atoms_per_call`` atoms (auto-sized
+    when None).
 
-    On the card the chunked step replays the slab rung's first passes
-    from CUDA graphs that the step function owns: captured at its first
-    call, replayed by later ones; a step function runs one call at a
-    time.
+    On the card the step replays the slab rung's first passes from CUDA
+    graphs that the step function owns: captured at its first call,
+    replayed by later ones; a step function runs one call at a time.
     """
 
     def __init__(
@@ -461,15 +432,12 @@ class FusedAnalysis:
             return self._prepare(batch, device)
 
     def _prepare(self, batch, device):
-        from amof_tpu_torch.ops import slab_table
-
         dev = resolve_device(device)
         handle = warmup(device=dev)  # build + context overlap the layout
         with tracing.span("pipeline.prepare.layout"):
             batch = as_frame_batch(batch)
             species = np.asarray(batch.species)
-            unique, z_to_idx = _species_table(species)
-            n_species = len(unique)
+            unique, z_to_idx = frame_table.species_table(species)
 
             cells = np.asarray(batch.cell, dtype=np.float32)
             rmax = self.rmax
@@ -480,37 +448,17 @@ class FusedAnalysis:
                     tracing.count("pipeline.prepares_width_cut")
             bins = int(rmax // self.dr)
 
-            # species-blocked layout upgrades RDF to kernel #1 (histograms
-            # are permutation-invariant, so BAD/CN/MSD take the re-layout
-            # unchanged); skipped when per-species padding to 256-atom
-            # tiles would inflate the atom count past 1.5x
-            block = int(np.lcm(256, self.chunk))
-            perm, sp_l = rdf_kernel.species_block_layout(
-                z_to_idx[species], block=block, total_multiple=block
-            )
-            blocked = len(sp_l) <= 1.5 * len(species)
-            if blocked:
-                positions = rdf_kernel.apply_atom_layout(
-                    np.asarray(batch.positions, np.float32), perm)
-                species_idx = sp_l.astype(np.int32)
-            else:
-                positions, species_idx = pair_engine.pad_atoms(
-                    np.asarray(batch.positions, np.float32),
-                    z_to_idx[species].astype(np.int32), self.chunk,
-                )
+            # species-blocked layout upgrades RDF to kernel #1 (BAD/CN/MSD
+            # take the re-layout unchanged)
+            positions, species_idx, blocked = frame_table.atom_layout(
+                batch.positions, z_to_idx[species], multiple=self.chunk,
+                block=int(np.lcm(256, self.chunk)))
 
-            cutoff_matrix = _cutoff_matrix_for_species(
-                self.nb_set_and_cutoff, unique, z_to_idx
-            )
-            pairs, bad_names = _enumerate_specs(self.nb_set_and_cutoff,
-                                                unique)
-            bad_specs = tuple(
-                (
-                    -1 if sa == "X" else int(z_to_idx[sa]),
-                    -1 if sb == "X" else int(z_to_idx[sb]),
-                )
-                for sa, sb in pairs
-            )
+            cutoff_matrix = frame_table.cutoff_matrix(
+                self.nb_set_and_cutoff, unique, z_to_idx)
+            pairs, bad_names = frame_table.enumerate_specs(
+                self.nb_set_and_cutoff, unique)
+            bad_specs = frame_table.spec_indices(pairs, z_to_idx)
             bad_bins = int(180 // self.dtheta) + 1
             # per-slot masses (pads may be interleaved by the blocked
             # layout)
@@ -520,59 +468,41 @@ class FusedAnalysis:
             ).astype(np.float32)
             volumes = np.abs(np.linalg.det(cells.astype(np.float64))).astype(
                 np.float32)
-
             n_pad = positions.shape[1]
-            bad_window = self.bad_window
-            if bad_window == "auto":
-                # pad rows carry uniformly-spread sort keys, so the window
-                # scales with the PADDED atom count
-                bad_window = sorted_window(cells, float(cutoff_matrix.max()),
-                                           n_pad, self.chunk)
-            if bad_window is not None and self.chunk + 2 * bad_window >= n_pad:
-                bad_window = None
 
-        # 2-level (slab, y) windows for the BAD/CN table: ~3x fewer
-        # candidate tests than the 1-level x-window
-        bad_slab = None
-        if self.with_bad and bad_window is not None:
-            with tracing.span("pipeline.prepare.slab_plan"):
-                bad_slab = slab_table.slab_plan(
-                    cells, float(cutoff_matrix.max()), n_pad,
-                    positions=positions, species_idx=species_idx,
-                )
+        table = frame_table.table_plan(
+            cells, cutoff_matrix, positions, species_idx, self.chunk,
+            self.with_bad, window=self.bad_window,
+            slab_span="pipeline.prepare.slab_plan")
 
         # diagonal-cell certificate for the RDF kernels' fast path
         ortho = bool(np.all(cells == cells * np.eye(3, dtype=cells.dtype)))
 
         with tracing.span("pipeline.prepare.upload"):
-            cells_t = torch.from_numpy(np.ascontiguousarray(cells))
+            frames = frame_table.upload(positions, cells, species_idx,
+                                        cutoff_matrix, dev)
             args = StepArgs(
-                positions=torch.from_numpy(positions).to(dev),
-                cells=cells_t.to(dev),
-                inv_cells=pair_engine.inverse_cell(cells_t).to(dev),
+                positions=frames.positions, cells=frames.cells,
+                inv_cells=frames.inv_cells,
                 volumes=torch.from_numpy(volumes).to(dev),
-                species_idx=torch.from_numpy(species_idx).to(dev),
-                cutoff_matrix=torch.from_numpy(cutoff_matrix).to(dev),
+                species_idx=frames.species_idx,
+                cutoff_matrix=frames.cutoff_matrix,
                 masses=torch.from_numpy(masses).to(dev),
             )
         cfg = _Config(
-            n_species=n_species, bins=bins, dr=float(self.dr),
-            bad_bins=bad_bins, dtheta=float(self.dtheta), chunk=self.chunk,
-            blocked=blocked, ortho=ortho, bad_window=bad_window,
-            bad_slab=bad_slab, with_bad=self.with_bad,
+            table=table, bins=bins, dr=float(self.dr), bad_bins=bad_bins,
+            dtheta=float(self.dtheta), blocked=blocked, ortho=ortho,
+            with_bad=self.with_bad,
         )
         meta = {
             "unique": unique, "bins": bins, "rmax": rmax,
             "bad_names": bad_names, "bad_specs": bad_specs, "device": dev,
-            "blocked": blocked, "ortho": ortho, "bad_window": bad_window,
-            "bad_slab": bad_slab, "n_atoms_padded": n_pad,
+            "blocked": blocked, "ortho": ortho, "bad_window": table.window,
+            "bad_slab": table.slab, "n_atoms_padded": n_pad,
         }
         a_blk = _msd_atom_block(batch.num_frames, n_pad,
                                 self.msd_atoms_per_call)
-        if self.frames_per_call is not None:
-            step_fn = self._make_chunked_step(cfg, meta, a_blk)
-        else:
-            step_fn = self._make_step(cfg, meta, n_pad)
+        step_fn = self._make_chunked_step(cfg, meta, a_blk)
         return after_warmup(handle, step_fn), args, meta
 
     def _finish(self, a: StepArgs, sums: _Sums, n_species: int, a_blk: int):
@@ -593,32 +523,15 @@ class FusedAnalysis:
         with tracing.span("pipeline.download"):
             return {k: v.cpu().numpy() for k, v in out.items()}
 
-    def _make_step(self, cfg: _Config, meta, n_pad: int):
-        """Monolithic step: every frame once at ``max_neighbors``."""
-        def step(*args):
-            with tracing.span("pipeline.step"):
-                a = StepArgs(*args)
-                n_frames = a.positions.shape[0]
-                _count_frames(cfg, n_frames)
-                meta["reruns"] = dict.fromkeys(RERUNS, 0)
-                sums = _Sums(cfg, n_frames, a.positions.device)
-                rung = _first_rung(cfg)
-                for f in range(n_frames):
-                    out = _frame_pass(cfg, a, f, self.max_neighbors,
-                                      rung=rung)
-                    with tracing.span("pipeline.sums"):
-                        sums.add(f, out)
-                return self._finish(a, sums, cfg.n_species, n_pad)
-
-        return step
-
     def _make_chunked_step(self, cfg: _Config, meta, a_blk: int):
         """Grouped step: ``frames_per_call`` frames per group, whole-group
         K doubling when more than half a group flags, then per-frame
         reruns of the flagged frames (RDF skipped: it never uses the
-        neighbour table) up the ladder 1-level window -> full table with
-        doubling K. Capacities found per group are remembered across
-        calls (they are a property of the data)."""
+        neighbour table) up ``frame_table``'s ladder. Capacities found
+        per group are remembered across calls (they are a property of
+        the data). Without ``frames_per_call``: one group of every frame,
+        no escalation and no reruns."""
+        escalate = cfg.with_bad and self.frames_per_call is not None
         group_caps = {}
         meta["msd_atoms_per_call"] = a_blk
         # the slab rung's frame graphs, (padded atoms, K, group size) ->
@@ -632,14 +545,15 @@ class FusedAnalysis:
                 a = StepArgs(*args)
                 n_frames = a.positions.shape[0]
                 _count_frames(cfg, n_frames)
-                target = max(self.frames_per_call, 1)
+                target = (n_frames if self.frames_per_call is None
+                          else max(self.frames_per_call, 1))
                 fpc = next(d for d in range(min(target, n_frames), 0, -1)
                            if n_frames % d == 0)
                 meta["frames_per_call"] = fpc
                 reruns = meta["reruns"] = dict.fromkeys(RERUNS, 0)
                 dev = a.positions.device
                 sums = _Sums(cfg, n_frames, dev)
-                rung0 = _first_rung(cfg)
+                rung0 = cfg.table.first_rung()
                 if rung0 == "slab":
                     if rdf_sum is None:
                         rdf_sum = torch.zeros_like(sums.rdf)
@@ -659,14 +573,14 @@ class FusedAnalysis:
                         with tracing.span("pipeline.sums"):
                             for out in outs:
                                 sums.rdf += out[0].to(torch.float64)
-                    if cfg.with_bad:
+                    if escalate:
                         if outs is not None:
                             flags = torch.stack([o[4] for o in outs])
                         # dense overflow: this data genuinely needs a
                         # bigger table -- escalate the whole group (BAD/CN
                         # only)
                         while (_count_flags(flags) > fpc // 2
-                               and k_cap < MAX_RERUN_CAPACITY):
+                               and k_cap < frame_table.MAX_RERUN_CAPACITY):
                             k_cap *= 2
                             group_caps[i] = k_cap
                             _tally(reruns, "groups_escalated")
@@ -678,48 +592,37 @@ class FusedAnalysis:
                         if outs is None:
                             graph.add_group(sums, i)
                         for f, out in zip(range(i, i + fpc), outs or ()):
-                            sums.add(f, out, with_rdf=False)
+                            sums.add(f, out)
 
-                if cfg.with_bad:
+                if escalate:
                     self._rerun_flagged(cfg, a, sums, reruns)
                 if rung0 == "slab":
                     sums.rdf = sums.rdf.clone()  # the next call zeroes it
-                return self._finish(a, sums, cfg.n_species, a_blk)
+                return self._finish(a, sums, cfg.table.n_species, a_blk)
 
         return _one_call_at_a_time(chunked_step)
 
     def _rerun_flagged(self, cfg: _Config, a: StepArgs, sums: _Sums,
                        reruns: dict):
-        """Flagged frames added nothing to the BAD sums, so rerunning them
-        at doubled capacity and adding their histograms is exact; their
-        CN rows are replaced. The slab is dropped (a slab miss is a
-        property of the data); a frame whose 1-level window missed moves
-        to the full table. Tallies its passes in ``reruns``."""
+        """The flagged frames up ``frame_table``'s ladder from
+        ``max_neighbors``: a frame that clears its flag adds its BAD
+        counts and replaces its CN row. Tallies its passes in
+        ``reruns``."""
+        def run(f, k, rung):
+            out = _frame_pass(cfg, a, f, k, with_rdf=False, rung=rung)
+            return out[4], out[5], out
+
+        def keep(f, out):
+            with tracing.span("pipeline.sums"):
+                sums.cn[f] = out[1]
+                sums.flag[f] = False
+                sums.add_bad(out[2], out[3], out[4])
+
         with tracing.span("pipeline.rerun"):
             flagged = torch.nonzero(sums.flag).flatten().tolist()
-            first = "window" if cfg.bad_window is not None else "full"
-            rung = dict.fromkeys(flagged, first)
-            if first == "full":
-                _tally(reruns, "frames_full_table", len(flagged))
-            k_re = self.max_neighbors
-            while flagged and k_re < MAX_RERUN_CAPACITY:
-                k_re *= 2
-                still = []
-                for f in flagged:
-                    out = _frame_pass(cfg, a, f, k_re, with_rdf=False,
-                                      rung=rung[f])
-                    _tally(reruns, "frames_rerun")
-                    if bool(out[4]):
-                        still.append(f)  # self-masked again
-                        if rung[f] == "window" and bool(out[5]):
-                            rung[f] = "full"
-                            _tally(reruns, "frames_full_table")
-                        continue
-                    with tracing.span("pipeline.sums"):
-                        sums.cn[f] = out[1]
-                        sums.flag[f] = False
-                        sums.add_bad(out[2], out[3], out[4])
-                flagged = still
+            frame_table.rerun_flagged(
+                flagged, self.max_neighbors, cfg.table.window, run, keep,
+                functools.partial(_tally, reruns))
 
     def run(self, batch, device="cuda") -> Tuple[Dict[str, np.ndarray], dict]:
         """Run the step; returns (outputs as numpy arrays, meta).

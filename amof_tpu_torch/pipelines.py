@@ -20,8 +20,8 @@ import amof_tpu_torch.rdf as amrdf
 from amof_tpu_torch.core.frames import as_frame_batch
 from amof_tpu_torch.core.step import construct_step
 from amof_tpu_torch.ops import bad_kernel
+from amof_tpu_torch.ops.frame_table import species_table
 from amof_tpu_torch.parallel.pipeline import FusedAnalysis
-from amof_tpu_torch.rdf import _species_table
 
 
 def analyze(
@@ -65,7 +65,7 @@ def analyze(
     rdf_obj.data = pd.DataFrame(amrdf.rdf_table(
         out["rdf_counts"], species, unique, n_frames, dr, meta["bins"]))
     cn_obj = amcn.CoordinationNumber()
-    _, z_to_idx = _species_table(species)
+    _, z_to_idx = species_table(species)
     cn_obj.data = pd.DataFrame(amcn.cn_table(
         out["cn_counts"], species, unique, z_to_idx, nb_set_and_cutoff, step))
     bad_obj = ambad.Bad()

@@ -41,7 +41,6 @@ from amof_tpu_torch.core.cellmath import cell_widths
 from amof_tpu_torch.core.frames import as_frame_batch
 from amof_tpu_torch.data import elements
 from amof_tpu_torch.ops.pair_engine import matvec3
-from amof_tpu_torch.parallel.pipeline import resolve_device
 from amof_tpu_torch.pore import grid_kernel, surface_kernel, winding, zeopp
 from amof_tpu_torch.pore.zeopp import (
     A2_PER_A3_TO_M2_PER_CM3,
@@ -53,7 +52,7 @@ from amof_tpu_torch.pore.zeopp import (
     DEFAULT_PROBE_RADIUS,
     _grid_dims,
 )
-from amof_tpu_torch.warmup import after_warmup, warmup
+from amof_tpu_torch.warmup import after_warmup, resolve_device, warmup
 
 logger = logging.getLogger(__name__)
 

@@ -37,8 +37,8 @@ import amof_tpu_torch.files.path
 from amof_tpu_torch.core.frames import FrameBatch, as_frame_batch, as_frames
 from amof_tpu_torch.core.step import construct_step
 from amof_tpu_torch.parallel.host import parallel_map
-from amof_tpu_torch.parallel.pipeline import resolve_device
 from amof_tpu_torch.pore import zeopp
+from amof_tpu_torch.warmup import resolve_device
 
 logger = logging.getLogger(__name__)
 

@@ -35,6 +35,7 @@ import torch
 
 from amof_tpu_torch.core import cellmath
 from amof_tpu_torch.data import elements
+from amof_tpu_torch.warmup import resolve_device
 
 DEFAULT_PROBE_RADIUS = 1.2
 DEFAULT_CHAN_RADIUS = 1.2
@@ -99,7 +100,6 @@ def analyze_frame(
     -block and -ray_atom need the unclamped field), an int forces that
     width, None disables it. A window miss is detected exactly and falls
     back to the full O(V*N) field."""
-    from amof_tpu_torch.parallel.pipeline import resolve_device
     from amof_tpu_torch.pore import grid_kernel, winding
 
     dev = resolve_device(device)
@@ -412,7 +412,7 @@ def _run_extra_options(frame, extra: str, kwargs) -> Dict[str, float]:
     while i < len(tokens):
         flag = tokens[i]
         if flag in ("-gridG", "-gridBOV"):
-            dev = _device(kwargs)
+            dev = resolve_device(kwargs.get("device", "cuda"))
             cell, _, frac_t, cell_t, radii_t = _frame_inputs(
                 frame, kwargs.get("radii"), dev)
             grid = kwargs.get("grid") or _grid_dims(
@@ -456,12 +456,6 @@ def _run_extra_options(frame, extra: str, kwargs) -> Dict[str, float]:
     return out
 
 
-def _device(kwargs):
-    from amof_tpu_torch.parallel.pipeline import resolve_device
-
-    return resolve_device(kwargs.get("device", "cuda"))
-
-
 # non-metals excluded from -oms (everything else counts as metal, the
 # same breadth as Zeo++'s metal table)
 _NON_METALS = frozenset(
@@ -478,7 +472,7 @@ def _atom_accessibility(frame, kwargs) -> np.ndarray:
     probe = float(kwargs.get("probe_radius", DEFAULT_PROBE_RADIUS))
     chan = float(kwargs.get("chan_radius", DEFAULT_CHAN_RADIUS))
     num_samples = int(kwargs.get("num_samples", DEFAULT_NUM_SAMPLES))
-    dev = _device(kwargs)
+    dev = resolve_device(kwargs.get("device", "cuda"))
     cell, atom_radii, frac_t, cell_t, radii_t = _frame_inputs(
         frame, kwargs.get("radii"), dev)
     grid = kwargs.get("grid") or _grid_dims(

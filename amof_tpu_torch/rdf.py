@@ -41,17 +41,10 @@ from amof_tpu_torch.core.cellmath import half_cell
 from amof_tpu_torch.core.frames import as_frame_batch
 from amof_tpu_torch.core.step import construct_step
 from amof_tpu_torch.data import elements
-from amof_tpu_torch.ops import pair_engine, rdf_kernel
+from amof_tpu_torch.ops import frame_table, pair_engine
+from amof_tpu_torch.warmup import resolve_device
 
 logger = logging.getLogger(__name__)
-
-
-def _species_table(species: np.ndarray):
-    """Sorted unique atomic numbers + dense index mapping."""
-    unique = np.array(sorted(set(np.asarray(species).tolist())))
-    z_to_idx = np.full(int(unique.max()) + 1, -1, dtype=np.int32)
-    z_to_idx[unique] = np.arange(len(unique), dtype=np.int32)
-    return unique, z_to_idx
 
 
 def shell_volumes(bins: int, dr: float) -> np.ndarray:
@@ -86,12 +79,6 @@ def rdf_table(counts, species, unique, n_frames: int, dr: float, bins: int):
     return cols
 
 
-def _device(device):
-    from amof_tpu_torch.parallel.pipeline import resolve_device
-
-    return resolve_device(device)
-
-
 def _tensor(a, dev, dtype=None):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
 
@@ -99,10 +86,10 @@ def _tensor(a, dev, dtype=None):
 def rdf_columns(trajectory, dr=0.01, rmax="half_cell", device="cuda"):
     """The RDF of a trajectory as ordered numpy columns (what
     ``Rdf.from_trajectory`` puts in ``.data``)."""
-    dev = _device(device)
+    dev = resolve_device(device)
     batch = as_frame_batch(trajectory)
     species = np.asarray(batch.species)
-    unique, z_to_idx = _species_table(species)
+    unique, z_to_idx = frame_table.species_table(species)
 
     cells = np.asarray(batch.cell, dtype=np.float64)
     rmax_half_cell = half_cell(cells)
@@ -121,15 +108,8 @@ def rdf_columns(trajectory, dr=0.01, rmax="half_cell", device="cuda"):
 
     # species-blocked layout (kernel #1) unless per-species tile padding
     # would inflate the pair count (small systems: kernel #2)
-    sp = z_to_idx[species].astype(np.int32)
-    perm, sp_l = rdf_kernel.species_block_layout(sp, block=256,
-                                                 total_multiple=256)
-    blocked = len(sp_l) <= 1.5 * len(species)
-    pos = np.asarray(batch.positions, dtype=np.float32)
-    if blocked:
-        positions, species_idx = rdf_kernel.apply_atom_layout(pos, perm), sp_l
-    else:
-        positions, species_idx = pair_engine.pad_atoms(pos, sp)
+    positions, species_idx, blocked = frame_table.atom_layout(
+        batch.positions, z_to_idx[species], block=256)
     cells32 = np.asarray(batch.cell, dtype=np.float32)
     ortho = bool(np.all(cells32 == cells32 * np.eye(3, dtype=np.float32)))
     counts = pair_engine.trajectory_rdf_counts(
@@ -202,10 +182,10 @@ def rdf_cn_columns(trajectory, nb_set_and_cutoff, step, dr=0.0001,
                    device="cuda"):
     """Per-frame RDF-integral coordination numbers as ordered numpy
     columns ("Step", then one per pair spec): kernel #2 on every frame."""
-    dev = _device(device)
+    dev = resolve_device(device)
     batch = as_frame_batch(trajectory)
     species = np.asarray(batch.species)
-    unique, z_to_idx = _species_table(species)
+    unique, z_to_idx = frame_table.species_table(species)
     n_species = len(unique)
     n_atoms = batch.num_atoms
 

@@ -48,6 +48,7 @@ from amof_tpu_torch import labeled, native, tracing
 from amof_tpu_torch.core.frames import as_frames
 from amof_tpu_torch.ops import graph_kernel
 from amof_tpu_torch.ops.neighbors_host import cutoff_dict_to_matrix, neighbor_pairs
+from amof_tpu_torch.warmup import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -157,8 +158,6 @@ def frame_ring_census(frame, cutoff_dict, max_size, device="cuda"):
 
     Returns (rings, potentially_undiscovered, king_count).
     """
-    from amof_tpu_torch.parallel.pipeline import resolve_device
-
     dev = resolve_device(device)
     dist = None
     with tracing.span("ring.adjacency"):
@@ -319,7 +318,6 @@ class Ring:
         none was kept; the per-frame report dicts, in frame order)."""
         logger.info("Start ring analysis for %s frames", len(frames))
         from amof_tpu_torch.parallel.host import parallel_map
-        from amof_tpu_torch.parallel.pipeline import resolve_device
 
         dev = resolve_device(device)
         native.get_lib()  # build/load the C++ enumerator once, outside the pool

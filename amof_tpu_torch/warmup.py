@@ -20,7 +20,8 @@ does every step function gated on the handle, and a failed build also
 raises again at the next ``_build.library()`` call.
 ``warmup`` is a no-op returning None on the CPU and when
 ``AMOF_TPU_NO_WARMUP`` is set; CUDA without a card raises, as
-``resolve_device`` does. Once per process.
+``resolve_device`` (the port's one device check, here with the rest of
+the device's start-up) does. Once per process.
 """
 
 from __future__ import annotations
@@ -36,6 +37,18 @@ SHAPE = (8, 128)
 
 _lock = threading.Lock()
 _handle = None
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for ``device``; raises for CUDA without a card (the
+    port never falls back to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' was requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain PyTorch versions"
+        )
+    return dev
 
 
 def warmup_copy_plain(src):
@@ -129,8 +142,6 @@ def warmup(block: bool = False, device="cuda"):
     global _handle
     if os.environ.get("AMOF_TPU_NO_WARMUP"):
         return None
-    from amof_tpu_torch.parallel.pipeline import resolve_device
-
     dev = resolve_device(device)
     if dev.type == "cpu":
         return None

@@ -300,7 +300,7 @@ def kernel_checks(args, meta, batch, dev, card, frames=(0, 1, 2),
 
     from amof_tpu_torch.ops import (neighbor_kernel, pair_engine,
                                     rdf_kernel, slab_table)
-    from amof_tpu_torch.rdf import _species_table
+    from amof_tpu_torch.ops.frame_table import species_table
 
     s = len(meta["unique"])
     bins = meta["bins"]
@@ -359,7 +359,7 @@ def kernel_checks(args, meta, batch, dev, card, frames=(0, 1, 2),
     rdf_blocked_side_checks(pos[f0], cells[f0], sp, s, bins)
 
     # kernel #2 on the bench trajectory in its own (unblocked) order
-    unique, z_to_idx = _species_table(batch.species)
+    unique, z_to_idx = species_table(batch.species)
     pos_u, sp_u = pair_engine.pad_atoms(
         np.asarray(batch.positions[:max(frames) + 1]),
         z_to_idx[batch.species].astype(np.int32), BENCH["chunk"])
@@ -458,39 +458,29 @@ def window_work(srt, cell, cut, inv, k, chunk, w, cnt):
 def window_kernel_cases(frame0, window_check, batch, dev, card):
     """Kernel #4 on three cases: bench frame 0 at the fused reruns' K 16,
     chunk 256, W 1408; the windowed CN pass's own input for the same
-    frame (``cn``'s padded atoms, species order and cutoffs, sorted by
-    fractional x as ``frame_cn_counts_windowed`` sorts them; K 32, its
-    chunk and window); and the crowded frame (one Zn with twenty added N
-    neighbours) at K 16. Each is held equal to the plain version and
+    frame (``cn_columns``' plan: padded atoms, species order and cutoffs,
+    sorted by fractional x as ``frame_cn_counts_windowed`` sorts them;
+    K 32, its chunk and window); and the crowded frame (one Zn with
+    twenty added N neighbours) at K 16. Each is held equal to the plain version and
     timed: CUDA events (10 calls), device time under the profiler (10
     calls) and host enqueue time; a counts line and the launch geometry.
     Returns (kernel JSON keys, the counts on the reruns' case)."""
-    import numpy as np
     import torch
 
-    from amof_tpu_torch import cn
+    from amof_tpu_torch.ops import frame_table
     from amof_tpu_torch.ops import neighbor_kernel as nk
     from amof_tpu_torch.ops import pair_engine
     from amof_tpu_torch.parallel.pipeline import FusedAnalysis
 
     srt0, cell0, cut, inv0 = frame0
     kk, chunk, w = window_check
-    species = np.asarray(batch.species)
-    unique, z_to_idx = cn._species_table(species)
-    cn_cut = torch.from_numpy(cn._cutoff_matrix_for_species(
-        CUTOFFS, unique, z_to_idx)).to(dev)
-    positions, species_idx = pair_engine.pad_atoms(
-        np.asarray(batch.positions[:1], dtype=np.float32),
-        z_to_idx[species].astype(np.int32))
-    n_cn = positions.shape[1]
-    cn_chunk = pair_engine._pick_chunk(n_cn)
-    cells = np.asarray(batch.cell[:1], dtype=np.float32)
-    cn_w = cn.sorted_window(cells, float(cn_cut.max()), n_cn, cn_chunk)
-    cn_cell = torch.from_numpy(np.ascontiguousarray(cells[0])).to(dev)
-    cn_inv = pair_engine.inverse_cell(cn_cell)
+    # the windowed CN pass's own input: cn_columns' plan of frame 0
+    _, _, cn_plan, cn_a = frame_table.entry_table(
+        excerpt(batch, 1), CUTOFFS, dev, with_bad=False)
+    cn_cut, cn_chunk, cn_w = cn_a.cutoff_matrix, cn_plan.chunk, cn_plan.window
+    cn_cell, cn_inv = cn_a.cells[0], cn_a.inv_cells[0]
     _, cn_pos, cn_sp = pair_engine.sort_by_fractional_x(
-        torch.from_numpy(positions[0]).to(dev),
-        torch.from_numpy(species_idx).to(dev), cn_inv)
+        cn_a.positions[0], cn_a.species_idx, cn_inv)
     box = float(batch.cell[0, 0, 0])
     crowded = crowd_one_zn(excerpt(batch, 1), 0, box)
     _, cargs, _ = FusedAnalysis(CUTOFFS, **BENCH).prepare(crowded, device=dev)
@@ -2806,7 +2796,7 @@ def entry_points(batch, box, pb, fused_out, fused_meta, dev, card):
     import torch
 
     from amof_tpu_torch import bad, cn, msd, rdf
-    from amof_tpu_torch.ops import bad_kernel
+    from amof_tpu_torch.ops import bad_kernel, frame_table
     from amof_tpu_torch.pore.core import pore_records
 
     crowded = crowd_one_zn(excerpt(batch, 4), 2, box)
@@ -2867,7 +2857,7 @@ def entry_points(batch, box, pb, fused_out, fused_meta, dev, card):
     for key, col in ref_rdf.items():
         check(np.array_equal(res["rdf"][key], col),
               f"rdf column {key}: entry point != fused step")
-    _, z_to_idx = rdf._species_table(batch.species)
+    _, z_to_idx = frame_table.species_table(batch.species)
     ref_cn = cn.cn_table(fused_out["cn_counts"][:32], batch.species, unique,
                          z_to_idx, CUTOFFS, steps[:32])
     for key, col in ref_cn.items():
@@ -2899,34 +2889,22 @@ def cn_passes(batch, dev, card, n_frames=32):
     import torch
 
     from amof_tpu_torch import cn, tracing
-    from amof_tpu_torch.ops import pair_engine
+    from amof_tpu_torch.ops import frame_table, pair_engine
 
     sub = excerpt(batch, n_frames)
     steps = np.arange(n_frames)
-    species = np.asarray(sub.species)
-    unique, z_to_idx = cn._species_table(species)
-    cut_np = cn._cutoff_matrix_for_species(CUTOFFS, unique, z_to_idx)
-    positions, species_idx = pair_engine.pad_atoms(
-        np.asarray(sub.positions, dtype=np.float32),
-        z_to_idx[species].astype(np.int32))
-    n_pad = positions.shape[1]
-    chunk = pair_engine._pick_chunk(n_pad)
-    cells = np.asarray(sub.cell, dtype=np.float32)
-    window = cn.sorted_window(cells, float(cut_np.max()), n_pad, chunk)
-    check(window is not None, "the bench frames should take a window")
-    s = len(unique)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pos = torch.from_numpy(positions).to(dev)
-    cells_t = torch.from_numpy(np.ascontiguousarray(cells)).to(dev)
-    inv = pair_engine.inverse_cell(cells_t)
-    sp = torch.from_numpy(species_idx).to(dev)
-    cut = torch.from_numpy(cut_np).to(dev)
+    unique, z_to_idx, plan, a = frame_table.entry_table(sub, CUTOFFS, dev,
+                                                        with_bad=False)
+    s, chunk, window = plan.n_species, plan.chunk, plan.window
+    check(window is not None, "the bench frames should take a window")
     counts = torch.empty((n_frames, s, s), dtype=torch.float32, device=dev)
     for f in range(n_frames):
-        counts[f] = pair_engine.frame_cn_counts(pos[f], cells_t[f], sp, cut,
-                                                s, chunk, inv_cell=inv[f])
-    full = cn.cn_table(counts.cpu().numpy(), species, unique, z_to_idx,
+        counts[f] = pair_engine.frame_cn_counts(
+            a.positions[f], a.cells[f], a.species_idx, a.cutoff_matrix, s,
+            chunk, inv_cell=a.inv_cells[f])
+    full = cn.cn_table(counts.cpu().numpy(), sub.species, unique, z_to_idx,
                        CUTOFFS, steps)
     torch.cuda.synchronize()
     t_full = time.perf_counter() - t0

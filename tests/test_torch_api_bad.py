@@ -10,11 +10,12 @@ Tolerances:
     the densities;
   * BadByCn: exact, values and coordinates (``cn`` included).
 
-The ladder test starts the port at K 2 with the 2-level slab rung forced
-on the CPU (it runs on the card only by default), so every rung runs:
-slab (kernel #3's plain version), the 1-level window (#4's), the full
-table, then K doubling; ``amof_tpu`` starts at K 16 without the slab.
-Histograms are order-invariant, so the results must agree.
+The ladder test starts the port's first pass at K 8: every frame runs
+once on the 2-level slab table (kernel #3's plain version), then only the
+crowded frame reruns up the shared ladder on the 1-level window (#4's)
+at K 16 and 32; ``amof_tpu`` reruns the whole trajectory from K 16
+without the slab. Histograms are order-invariant, so the results must
+agree.
 """
 
 import itertools
@@ -25,7 +26,7 @@ import torch
 
 import amof_tpu.bad as jbad
 import amof_tpu_torch.bad as tbad
-from amof_tpu_torch.ops import bad_kernel
+from amof_tpu_torch.ops import bad_kernel, frame_table
 
 from test_torch_api_rdf import batches
 from test_torch_bad_msd import assert_bins_within_one
@@ -92,21 +93,19 @@ def assert_labeled_equal(got, ref_arr):
 
 @pytest.fixture
 def ladder(monkeypatch):
-    """Start at K 2 with the slab rung on the CPU; log each pass's
-    (K, rung)."""
-    rungs = []
-    fn = bad_kernel.trajectory_bad_counts
+    """Start the first pass at K 8; log each frame pass's (frame, K,
+    rung)."""
+    passes = []
+    fn = frame_table.frame_pass
 
-    def logged(*a, **k):
-        rung = ("slab" if k["slab"] is not None
-                else "window" if k["window"] is not None else "full")
-        rungs.append((a[7], rung))
-        return fn(*a, **k)
+    def logged(plan, pos, *a, **k):
+        # pos is row f of the trajectory's [F, N, 3] positions
+        passes.append((pos.storage_offset() // pos.numel(), a[4], a[5]))
+        return fn(plan, pos, *a, **k)
 
-    monkeypatch.setattr(tbad, "_FIRST_CAPACITY", 2)
-    monkeypatch.setattr(tbad, "_slab_rung", lambda dev: True)
-    monkeypatch.setattr(bad_kernel, "trajectory_bad_counts", logged)
-    return rungs
+    monkeypatch.setattr(frame_table, "FIRST_CAPACITY", 8)
+    monkeypatch.setattr(frame_table, "frame_pass", logged)
+    return passes
 
 
 @pytest.mark.parametrize("forced_ladder", [False, True])
@@ -116,8 +115,10 @@ def test_bad_matches_amof_tpu(traj, ref, forced_ladder, request):
     got = tbad.Bad.from_trajectory(batch, CUTOFFS, dtheta=DTHETA,
                                    device="cpu")
     if forced_ladder:
-        assert rungs == [(2, "slab"), (2, "window"), (2, "full"), (4, "full"),
-                         (8, "full"), (16, "full"), (32, "full")]
+        # the first pass over every frame, then reruns of only the crowded
+        # frame
+        assert rungs == [(0, 8, "slab"), (1, 8, "slab"), (1, 16, "window"),
+                         (1, 32, "window")]
     assert_densities_close(got.data, ref["bad"], batch)
 
 
@@ -162,8 +163,8 @@ def test_frame_by_cn_counts_match_amof_tpu():
 
 
 def test_ladder_gives_up_past_its_capacity(traj, monkeypatch):
-    monkeypatch.setattr(tbad, "_FIRST_CAPACITY", 4)
-    monkeypatch.setattr(tbad, "_MAX_NEIGHBOR_CAPACITY", 16)
+    monkeypatch.setattr(frame_table, "FIRST_CAPACITY", 4)
+    monkeypatch.setattr(frame_table, "MAX_RERUN_CAPACITY", 16)
     batch, _ = batches(*traj)
     with pytest.raises(RuntimeError, match="capacity"):
         tbad.Bad.from_trajectory(batch, CUTOFFS, dtheta=DTHETA, device="cpu")

@@ -1,6 +1,6 @@
 """The port's ``cn.cn_columns`` on its sorted-window pass (kernel #4's
 table), held to the same call forced onto the full O(N^2) pass
-(``cn.sorted_window`` returning None), bit for bit, with the counters
+(``frame_table.sorted_window`` returning None), bit for bit, with the counters
 ``cn.frames``, ``cn.frames_windowed`` and ``cn.frames_full``.
 
 On the CPU (kernel #4's plain version): a trajectory whose first and
@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from amof_tpu_torch import cn, tracing
+from amof_tpu_torch.ops import frame_table
 
 torch.set_num_threads(2)
 
@@ -76,7 +77,7 @@ def assert_windowed_equals_full(batch, cutoffs, device, monkeypatch,
     assert counters == {"cn.frames": f, "cn.frames_windowed": f - n_full,
                         "cn.frames_full": n_full}
     with monkeypatch.context() as m:
-        m.setattr(cn, "sorted_window", lambda *a: None)
+        m.setattr(frame_table, "sorted_window", lambda *a: None)
         ref, ref_counters = counted_columns(batch, cutoffs, device)
     assert ref_counters == {"cn.frames": f, "cn.frames_windowed": 0,
                             "cn.frames_full": f}

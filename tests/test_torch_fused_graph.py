@@ -5,19 +5,21 @@ needs, held to the forms they replace.
 On the CPU: ``cn_from_table``, the slab layout's populations and
 ``missed``, and ``angle_histograms`` (with and without ``by_cn``, filler
 centers and empty slots) equal the masked ``bincount`` / select-then-add
-forms bit for bit; the chunked step's group accumulators (run eagerly
-here) give the outputs of the chunked step as it ran frame by frame,
-an escalated group included; a step function owns its graphs and RDF
-sum, and refuses a call that starts while it runs.
+forms bit for bit; the step's group accumulators (run eagerly here)
+give the outputs of the step as it ran frame by frame, an escalated
+group and the one group of the default step included; a step function
+owns its graphs and RDF sum, and refuses a call that starts while it
+runs.
 
 On the card (``-m cuda``; skips without one) on the benchmark's bonded
-glass network (9792 atoms): the graphed chunked step equals the eager
-step bit for bit over two pieces with different ``SlabPlan``s and with a
-crowded Zn that escalates a group; a slab-rung frame pass and a group's
-replays run under ``torch.cuda.set_sync_debug_mode("error")``; the
-counters ``pipeline.frames_graphed`` and ``launch.<kernel>`` count every
-replay, and a 272-atom cell (no slab rung) replays nothing; no cycle
-collection runs while a graph is captured.
+glass network (9792 atoms): the graphed step, grouped and default,
+equals the eager step bit for bit over two pieces with different
+``SlabPlan``s, and grouped with a crowded Zn that escalates a group; a
+slab-rung frame pass and a group's replays run under
+``torch.cuda.set_sync_debug_mode("error")``; the counters
+``pipeline.frames_graphed`` and ``launch.<kernel>`` count every replay,
+and a 272-atom cell (no slab rung) replays nothing; no cycle collection
+runs while a graph is captured.
 
 The module imports neither jax nor the JAX package:
 
@@ -32,7 +34,7 @@ import pytest
 import torch
 
 from amof_tpu_torch import FrameBatch, tracing
-from amof_tpu_torch.ops import bad_kernel, pair_engine, slab_table
+from amof_tpu_torch.ops import bad_kernel, frame_table, pair_engine, slab_table
 from amof_tpu_torch.parallel import pipeline
 from amof_tpu_torch.parallel.pipeline import RERUNS, FusedAnalysis
 
@@ -77,7 +79,7 @@ def crowd(batch, frames, first_n, rng):
 
 
 def step_parts(fa, batch, device, monkeypatch):
-    """``fa.prepare`` with the chunked step's configuration kept: (step
+    """``fa.prepare`` with the step builder's configuration kept: (step
     function, args, meta, cfg, MSD atom block)."""
     kept = {}
     make = fa._make_chunked_step
@@ -94,15 +96,18 @@ def step_parts(fa, batch, device, monkeypatch):
 def eager_chunked(fa, cfg, a_blk, args):
     """The chunked step as it ran before frame graphs: every first pass
     through ``_frame_pass``, each frame's RDF, CN, flag and flag-masked
-    BAD counts added to the step's sums one frame at a time. Returns
-    (outputs, rerun tallies)."""
+    BAD counts added to the step's sums one frame at a time; without
+    ``frames_per_call`` one group of every frame, no escalation and no
+    reruns. Returns (outputs, rerun tallies)."""
     a = pipeline.StepArgs(*args)
     n_frames = a.positions.shape[0]
-    fpc = next(d for d in range(min(fa.frames_per_call, n_frames), 0, -1)
+    grouped = fa.frames_per_call is not None
+    fpc = next(d for d in range(min(fa.frames_per_call or n_frames,
+                                    n_frames), 0, -1)
                if n_frames % d == 0)
     reruns = dict.fromkeys(RERUNS, 0)
     sums = pipeline._Sums(cfg, n_frames, a.positions.device)
-    rung0 = pipeline._first_rung(cfg)
+    rung0 = cfg.table.first_rung()
     for i in range(0, n_frames, fpc):
         k_cap = fa.max_neighbors
         outs = [pipeline._frame_pass(cfg, a, f, k_cap, rung=rung0)
@@ -110,8 +115,8 @@ def eager_chunked(fa, cfg, a_blk, args):
         for out in outs:
             sums.rdf += out[0].to(torch.float64)
         flags = torch.stack([o[4] for o in outs])
-        while (int(flags.sum()) > fpc // 2
-               and k_cap < pipeline.MAX_RERUN_CAPACITY):
+        while (grouped and int(flags.sum()) > fpc // 2
+               and k_cap < frame_table.MAX_RERUN_CAPACITY):
             k_cap *= 2
             reruns["groups_escalated"] += 1
             outs = [pipeline._frame_pass(cfg, a, f, k_cap, with_rdf=False,
@@ -119,9 +124,10 @@ def eager_chunked(fa, cfg, a_blk, args):
                     for f in range(i, i + fpc)]
             flags = torch.stack([o[4] for o in outs])
         for f, out in zip(range(i, i + fpc), outs):
-            sums.add(f, out, with_rdf=False)
-    fa._rerun_flagged(cfg, a, sums, reruns)
-    return fa._finish(a, sums, cfg.n_species, a_blk), reruns
+            sums.add(f, out)
+    if grouped:
+        fa._rerun_flagged(cfg, a, sums, reruns)
+    return fa._finish(a, sums, cfg.table.n_species, a_blk), reruns
 
 
 def assert_outputs_equal(got, ref):
@@ -257,8 +263,8 @@ def test_slab_frame_counts_equal_masked_forms(monkeypatch):
     fa = FusedAnalysis(CUTOFFS, **KW, max_neighbors=8, frames_per_call=2)
     _, args, meta, cfg, _ = step_parts(fa, glass(n_frames=1), "cpu",
                                        monkeypatch)
-    assert cfg.bad_slab is not None
-    assert cfg.bad_slab.m_centers > meta["n_atoms_padded"]  # fillers
+    assert cfg.table.slab is not None
+    assert cfg.table.slab.m_centers > meta["n_atoms_padded"]  # fillers
     a = pipeline.StepArgs(*args)
     got = pipeline._frame_pass(cfg, a, 0, 8, rung="slab")
     monkeypatch.setattr(bad_kernel, "_accumulate", accumulate_masked)
@@ -274,24 +280,27 @@ def test_slab_frame_counts_equal_masked_forms(monkeypatch):
 # The group accumulators, run eagerly (CPU)
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("k,crowded", [(8, ()), (8, (1,)), (2, (1,))])
-def test_group_accumulators_equal_frame_by_frame_step(k, crowded,
+@pytest.mark.parametrize("k,crowded,fpc", [(8, (), 2), (8, (1,), 2),
+                                           (2, (1,), 2), (8, (1,), None)])
+def test_group_accumulators_equal_frame_by_frame_step(k, crowded, fpc,
                                                       monkeypatch):
     """Outputs and rerun tallies of the chunked step equal the frame-by-
-    frame step's: no flag, a frame rerun on the window, and at K 2 a
-    group escalated whole. The CPU replays nothing."""
+    frame step's: no flag, a frame rerun on the window, at K 2 a group
+    escalated whole, and without ``frames_per_call`` one group whose
+    flagged frame stays flagged. The CPU replays nothing."""
     batch = glass(crowd_frames=crowded)
-    fa = FusedAnalysis(CUTOFFS, **KW, max_neighbors=k, frames_per_call=2)
+    fa = FusedAnalysis(CUTOFFS, **KW, max_neighbors=k, frames_per_call=fpc)
     step_fn, args, meta, cfg, a_blk = step_parts(fa, batch, "cpu",
                                                  monkeypatch)
     made = frame_graphs_made(monkeypatch)
-    assert cfg.bad_slab is not None
+    assert cfg.table.slab is not None
     out, counts = counted(lambda: step_fn(*args))
     ref, reruns = eager_chunked(fa, cfg, a_blk, args)
     assert_outputs_equal(out, ref)
     assert meta["reruns"] == reruns
     assert (reruns["groups_escalated"] > 0) == (k == 2)
-    assert (reruns["frames_rerun"] > 0) == bool(crowded)
+    assert (reruns["frames_rerun"] > 0) == (bool(crowded) and fpc is not None)
+    assert out["bad_overflow"].any() == (fpc is None)
     # the counter is there, at 0
     assert "pipeline.frames_graphed" not in counts
     assert tracing.snapshot()["counts"]["pipeline.frames_graphed"] == 0
@@ -407,10 +416,11 @@ def glass_analysis(config, **kw):
 
 
 @pytest.mark.cuda
-def test_graphed_step_equals_eager_step_on_two_plans(cuda, net_pieces,
+@pytest.mark.parametrize("fpc", [8, None])
+def test_graphed_step_equals_eager_step_on_two_plans(cuda, net_pieces, fpc,
                                                      monkeypatch):
     config, batches = net_pieces
-    fa = glass_analysis(config)
+    fa = glass_analysis(config, frames_per_call=fpc)
     plans = []
     for batch in batches + batches:  # the second round replays only
         step_fn, args, meta, cfg, a_blk = step_parts(fa, batch, cuda,
@@ -462,7 +472,7 @@ def test_slab_frame_pass_and_replays_never_wait_for_the_card(
                                                  monkeypatch)
     step_fn(*args)  # first launches
     a = pipeline.StepArgs(*args)
-    rdf = torch.zeros((cfg.n_species, cfg.n_species, cfg.bins),
+    rdf = torch.zeros((cfg.table.n_species, cfg.table.n_species, cfg.bins),
                       dtype=torch.float64, device=cuda)
     graph = pipeline._FrameGraph(cfg, a.positions.shape[1], 8, 8, rdf)
     graph.first_pass(a, 0)  # the root check, the capture

@@ -25,7 +25,8 @@ from amof_tpu.parallel.mesh import analysis_mesh
 from amof_tpu.parallel.pipeline import FusedAnalysis as JaxFused
 from amof_tpu_torch import FrameBatch
 from amof_tpu_torch.ops import neighbor_kernel
-from amof_tpu_torch.parallel.pipeline import FusedAnalysis, resolve_device
+from amof_tpu_torch.parallel.pipeline import (RERUNS, FusedAnalysis,
+                                              resolve_device)
 
 from test_torch_bad_msd import assert_bins_within_one
 
@@ -114,6 +115,43 @@ def test_monolithic_matches_jax(traj, jax_ref):
     assert meta["bad_slab"] is not None  # the 2-level table ran
     _compare(out, jax_ref[0], traj[0])
     assert list(meta["bad_names"]) == list(jax_ref[1]["bad_names"])
+
+
+def test_default_step_leaves_a_flagged_frame_out(traj):
+    """Without ``frames_per_call`` the step is one group of every frame at
+    ``max_neighbors`` with no reruns: at K 8 the clumped frame alone sets
+    ``bad_overflow``, its angles stay out of the BAD histograms (they
+    equal the step's on the other five frames), and the outputs equal
+    amof_tpu's monolithic step at the same K."""
+    batch, jb = _batches(*traj)
+    kw = dict(max_neighbors=8, **KW)
+    ref, _ = JaxFused(CUTOFFS, method="scatter", **kw).run(
+        jb, mesh=analysis_mesh(1))
+    out, meta = FusedAnalysis(CUTOFFS, **kw).run(batch, device="cpu")
+    assert meta["bad_slab"] is not None
+    assert meta["reruns"] == dict.fromkeys(RERUNS, 0)
+    flagged = np.arange(len(traj[0])) == 4
+    np.testing.assert_array_equal(out["bad_overflow"].astype(bool), flagged)
+    np.testing.assert_array_equal(np.asarray(ref["bad_overflow"]) != 0,
+                                  flagged)
+    np.testing.assert_array_equal(out["rdf_counts"], ref["rdf_counts"])
+    # the flagged frame's CN row is read off its overflowed slab table,
+    # where amof_tpu's table counts every pair
+    np.testing.assert_array_equal(out["cn_counts"][~flagged],
+                                  ref["cn_counts"][~flagged])
+    assert (out["cn_counts"][flagged] <= ref["cn_counts"][flagged]).all()
+    assert_bins_within_one(out["bad_concrete"], ref["bad_concrete"])
+    assert_bins_within_one(out["bad_center_any"], ref["bad_center_any"])
+    for key in ("msd", "msd_species"):
+        np.testing.assert_allclose(out[key], ref[key], rtol=1e-4,
+                                   atol=msd_atol(traj[0]))
+    pos, cells, species = traj
+    kept, _ = _batches(pos[~flagged], cells[~flagged], species)
+    rest, _ = FusedAnalysis(CUTOFFS, with_msd=False, **kw).run(
+        kept, device="cpu")
+    assert not rest["bad_overflow"].any()
+    for key in ("bad_concrete", "bad_center_any"):
+        np.testing.assert_array_equal(out[key], rest[key], err_msg=key)
 
 
 def test_chunked_reruns_match_jax(traj, jax_ref, monkeypatch):
