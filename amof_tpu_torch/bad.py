@@ -17,7 +17,12 @@ is the host-side per-frame helper.
 first rung, each adding its counts unless its flag is up, the flags read
 once a call; then only the flagged frames go up the rerun ladder, K
 doubling to 1024, after which it raises. Neighbour capacity overflow or
-a window miss therefore never drops an angle silently.
+a window miss therefore never drops an angle silently. On the card's
+slab rung the first pass replays one CUDA graph a frame, captured by
+the call (``_first_pass``); the graph machinery is ``ops/frame_table.py``
+``FrameGraph``, shared with the fused step. Counters ``bad.frames``
+(first-pass frames), ``bad.frames_graphed`` (those replayed from a
+graph), ``bad.graph_captures``; span ``bad.capture``.
 
 The device work lives in pandas-free functions (``bad_columns``,
 ``bad_by_cn_dataset``); ``Bad`` wraps its columns in a DataFrame (pandas
@@ -28,17 +33,39 @@ from __future__ import annotations
 
 import functools
 import logging
+import threading
 
 import numpy as np
 import torch
 
 import amof_tpu_torch.files.path
-from amof_tpu_torch import labeled
+from amof_tpu_torch import labeled, tracing
 from amof_tpu_torch.core.frames import as_frame_batch
 from amof_tpu_torch.ops import bad_kernel, frame_table
 from amof_tpu_torch.warmup import resolve_device
 
 logger = logging.getLogger(__name__)
+
+# calls of fewer frames run their first pass eagerly on the card too: a
+# capture costs about two eager frames. Measured on an H100 80GB HBM3
+# (700 W) with the 9792-atom glass (Zn-N, dtheta 0.05): a capture took
+# 10.5-11.9 ms against 5.4-6.4 ms an eager frame, and whole calls of 2, 3
+# and 4 frames took 1.33, 0.99 and 0.82 times as long graphed as eager
+GRAPH_MIN_FRAMES = 4
+
+# each thread's capture stream and memory pool a device
+# (``frame_table.CaptureMemory``), which every call's graph takes: state
+# of the device's memory, as the caching allocator's own is
+_memory = threading.local()
+
+
+def _capture_memory(dev):
+    """This thread's ``frame_table.CaptureMemory`` on ``dev``: the graphs
+    die with their calls, their device memory stays for the next."""
+    by_device = _memory.__dict__.setdefault("by_device", {})
+    if dev not in by_device:
+        by_device[dev] = frame_table.CaptureMemory(dev)
+    return by_device[dev]
 
 
 def bad_table(counts, names, theta, dtheta):
@@ -51,6 +78,54 @@ def bad_table(counts, names, theta, dtheta):
         if total > 0:
             cols[name] = angle_counts[s] / (total * dtheta)
     return cols
+
+
+def _first_pass(plan, a, k_cap: int, dtheta: float, bins: int, by_cn: bool,
+                sums):
+    """Every frame once at K ``k_cap`` on the plan's first rung: its
+    counts into a frame pair shaped as ``sums`` (zeroed first), added
+    into the float64 ``sums`` unless its flag is up. Returns the frames'
+    flags, bool [F], on the device.
+
+    The frame's body runs through ``frame_table.FrameGraph``: on the
+    card's slab rung, in a call of ``GRAPH_MIN_FRAMES`` frames or more,
+    one graph replay a frame, captured by this call; eagerly otherwise.
+    Counters ``bad.frames`` and ``bad.frames_graphed``."""
+    n_frames, n_pad, _ = a.positions.shape
+    dev = a.positions.device
+    rung = plan.first_rung()
+    x = {
+        "pos": a.positions.new_zeros((n_pad, 3)),
+        "cell": a.cells.new_zeros((3, 3)),
+        "inv": a.inv_cells.new_zeros((3, 3)),
+        "species": torch.zeros_like(a.species_idx),
+        "cutoff": torch.zeros_like(a.cutoff_matrix),
+        "slot": torch.zeros(1, dtype=torch.int64, device=dev),
+    }
+    frame = [torch.zeros_like(acc) for acc in sums]
+    flags = torch.zeros(n_frames, dtype=torch.bool, device=dev)
+
+    def body():
+        for o in frame:
+            o.zero_()
+        flag = frame_table.frame_pass(
+            plan, x["pos"], x["cell"], x["inv"], x["species"], x["cutoff"],
+            k_cap, rung, dtheta, bins, by_cn=by_cn, out=frame)[2]
+        frame_table.add_unflagged(*sums, *frame, flag)
+        flags.index_copy_(0, x["slot"], flag[None])
+
+    graphed = (dev.type == "cuda" and rung == "slab"
+               and n_frames >= GRAPH_MIN_FRAMES)
+    graph = frame_table.FrameGraph(
+        body, x, (*sums, flags), "bad", graphed=graphed,
+        memory=_capture_memory(dev) if graphed else None)
+    graph.load({"species": a.species_idx, "cutoff": a.cutoff_matrix})
+    slots = torch.arange(n_frames, device=dev)
+    tracing.count("bad.frames", n_frames)
+    graph.run({"pos": a.positions[f], "cell": a.cells[f],
+               "inv": a.inv_cells[f], "slot": slots[f:f + 1]}
+              for f in range(n_frames))
+    return flags
 
 
 def _compute_counts(batch, nb_set_and_cutoff, dtheta, by_cn=False,
@@ -72,9 +147,18 @@ def _compute_counts(batch, nb_set_and_cutoff, dtheta, by_cn=False,
         return (a.positions.new_zeros((s, s, c, bins), dtype=torch.float64),
                 a.positions.new_zeros((s, c, bins), dtype=torch.float64))
 
-    def run(f, k, rung, out):
-        """Frame ``f``'s counts into ``out`` (zeroed first); its flag and
-        window miss."""
+    k0 = frame_table.FIRST_CAPACITY
+    sums = histograms(k0)
+    flags = _first_pass(plan, a, k0, float(dtheta), bins, by_cn, sums)
+    flagged = flags.nonzero().flatten().tolist()  # one wait
+
+    # one buffer a round of the ladder: S^2 (K+1) bins at K 1024
+    scratch = functools.lru_cache(maxsize=1)(histograms)
+
+    def rerun(f, k, rung):
+        """Frame ``f``'s counts at K ``k`` on ``rung`` into the round's
+        buffer (zeroed first); its flag and window miss."""
+        out = scratch(k)
         for o in out:
             o.zero_()
         _, _, flag, missed = frame_table.frame_pass(
@@ -82,21 +166,6 @@ def _compute_counts(batch, nb_set_and_cutoff, dtheta, by_cn=False,
             a.species_idx, a.cutoff_matrix, k, rung, float(dtheta), bins,
             by_cn=by_cn, out=out)
         return flag, missed, out
-
-    k0 = frame_table.FIRST_CAPACITY
-    sums, frame = histograms(k0), histograms(k0)
-    flags = []
-    for f in range(a.positions.shape[0]):
-        flag, _, _ = run(f, k0, plan.first_rung(), frame)
-        frame_table.add_unflagged(*sums, *frame, flag)
-        flags.append(flag)
-    flagged = torch.stack(flags).nonzero().flatten().tolist()  # one wait
-
-    # one buffer a round of the ladder: S^2 (K+1) bins at K 1024
-    scratch = functools.lru_cache(maxsize=1)(histograms)
-
-    def rerun(f, k, rung):
-        return run(f, k, rung, scratch(k))
 
     def keep(f, out):
         nonlocal sums

@@ -3,8 +3,9 @@ The K-slot neighbour table of a trajectory's frames, as the fused step
 (``parallel/pipeline.py``) and the BAD and CN entry points run it: the
 species, cutoff and spec tables, the atom layout (``atom_layout``: the
 one 1.5x rule for the species-blocked layout), the table rule
-(``table_plan``), one frame's pass on a rung (``frame_pass``) and the
-rerun ladder of flagged frames (``rerun_flagged``).
+(``table_plan``), one frame's pass on a rung (``frame_pass``), the
+rerun ladder of flagged frames (``rerun_flagged``) and the frame graph
+that replays a first pass on the card (``FrameGraph``).
 
 The rung never changes a result: histograms and counts are exact and
 independent of order, so a frame flagged on one rung (capacity overflow
@@ -13,7 +14,8 @@ or a window miss) reruns on the next and adds its counts there.
 
 from __future__ import annotations
 
-from contextlib import nullcontext
+import gc
+from contextlib import contextmanager, nullcontext
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -248,3 +250,131 @@ def rerun_flagged(frames, k_first: int, window, run, keep, tally=None):
             keep(f, out)
         frames = still
     return frames
+
+
+@contextmanager
+def _capturing(graph, pool):
+    """``graph`` captures the current stream's work in the block, into
+    ``pool`` (None: a pool of its own). No cycle collection meanwhile:
+    one that freed another owner's graph would call CUDA, which capture
+    forbids."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            yield
+        finally:
+            graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
+
+
+class CaptureMemory:
+    """A side stream and a memory pool on ``device`` for frame graphs
+    captured one after another, each released before the next is
+    captured: a capture then reuses the blocks the one before it
+    reserved (~0.4 GB on the 9792-atom glass), where a pool of its own
+    would reserve them anew from the card, and a new side stream would
+    cache its own. A one-op graph captured here holds the pool open (a pool
+    is released with the last graph that holds it)."""
+
+    def __init__(self, device):
+        with torch.cuda.device(device):
+            self.stream = torch.cuda.Stream(device)
+            self._holder = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(self.stream):
+                with _capturing(self._holder, None):
+                    torch.zeros(1, device=device)
+        self.pool = self._holder.pool()
+
+
+class FrameGraph:
+    """A frame's first pass as one replayable unit: on the card a
+    ``torch.cuda.CUDAGraph`` of its owner's ``body``, one launch a frame
+    in place of some 300 and no wait for the card; elsewhere, or where
+    ``graphed`` is False, ``body`` runs eagerly.
+
+    ``body()`` reads only ``inputs``, static tensors by name that
+    ``load`` fills by device-to-device copies, and adds into
+    ``outputs``; the owner holds what the body does (the fused step's
+    frame with its RDF and CN, BAD's counts). The graph is captured at
+    the first frame, on a side stream after one eager pass there (which
+    makes that stream's own state, such as kernel #1's work queue, and
+    runs #1's root check); the outputs are restored after the
+    capture, so every frame counts once. Its owner owns it: nothing
+    caches a graph. ``memory``: a ``CaptureMemory`` whose stream and
+    pool the capture takes (None: a new side stream, and a pool of the
+    graph's own, released with it).
+
+    Under ``prefix``: span ``<prefix>.capture``, counters
+    ``<prefix>.graph_captures`` and ``<prefix>.frames_graphed`` (0 for
+    an eager frame); each replay counts the ``launch.<kernel>`` its
+    graph holds."""
+
+    def __init__(self, body, inputs: dict, outputs, prefix: str,
+                 graphed: bool = True, memory=None):
+        self.body, self.inputs, self.outputs = body, inputs, tuple(outputs)
+        self.prefix, self.memory = prefix, memory
+        self.device = self.outputs[0].device
+        self.graphed = graphed and self.device.type == "cuda"
+        self.graph = None
+        self.launches = {}  # launch.<kernel> -> launches a replay
+
+    def load(self, sources: dict):
+        """Each named input from its source, on the device."""
+        for name, src in sources.items():
+            self.inputs[name].copy_(src)
+
+    def _capture(self):
+        """One eager pass on a side stream, then the capture there. The
+        launches the capture recorded did not run: they leave the
+        counters, and each replay counts them."""
+        with tracing.span(self.prefix + ".capture"):
+            saved = [t.clone() for t in self.outputs]
+            main = torch.cuda.current_stream(self.device)
+            side = (self.memory.stream if self.memory
+                    else torch.cuda.Stream(self.device))
+            side.wait_stream(main)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                self.body()
+                before = tracing.snapshot()["counts"]
+                with _capturing(graph,
+                                self.memory.pool if self.memory else None):
+                    self.body()
+                after = tracing.snapshot()["counts"]
+            main.wait_stream(side)
+            for t, old in zip(self.outputs, saved):
+                t.copy_(old)
+            self.launches = {k: n - before.get(k, 0)
+                             for k, n in after.items()
+                             if k.startswith("launch.")
+                             and n != before.get(k, 0)}
+            for k, n in self.launches.items():
+                tracing.count(k, -n)
+            self.graph = graph
+            tracing.count(self.prefix + ".graph_captures")
+
+    def run(self, frames, span: Optional[str] = None):
+        """One frame for each item of ``frames`` (input name -> the
+        tensor to load), each under ``span``: its inputs loaded, then a
+        replay (the graph captured at the first) or ``body``."""
+        on_card = self.device.type == "cuda"
+        # capture and replay use the current device's streams
+        with torch.cuda.device(self.device) if on_card else nullcontext():
+            for sources in frames:
+                if self.graphed and self.graph is None:
+                    self.load(sources)
+                    self._capture()
+                with tracing.span(span) if span else nullcontext():
+                    self.load(sources)
+                    if self.graph is not None:
+                        self.graph.replay()
+                    else:
+                        self.body()
+                    for k, n in self.launches.items():
+                        tracing.count(k, n)
+                    tracing.count(self.prefix + ".frames_graphed",
+                                  int(self.graph is not None))

@@ -26,10 +26,12 @@ dropped silently.
 On the card the step's first pass on the slab rung replays one CUDA
 graph a frame (``_FrameGraph``): some 300 launches and no wait for the
 card, where the eager pass paid ~4 ms of host dispatch a frame for
-~0.8 ms of device work. A step function owns its graphs: one capture
-for each K its groups start at, at its first call. Every other pass
-(escalated groups, the rerun ladder, the other rungs, the CPU) runs
-eagerly.
+~0.8 ms of device work. The capture and replay machinery is
+``ops/frame_table.py``'s ``FrameGraph``, which the BAD entry point's
+first pass shares; the frame's body stays here (``_graph_body``). A
+step function owns its graphs: one capture for each K its groups start
+at, at its first call. Every other pass (escalated groups, the rerun
+ladder, the other rungs, the CPU) runs eagerly.
 
 Spans and counters (``amof_tpu_torch.tracing``): ``pipeline.prepare``
 (``.layout``, ``.slab_plan``, ``.upload``), ``pipeline.step``,
@@ -47,10 +49,8 @@ and the rerun tallies ``RERUNS`` (also in ``meta``).
 from __future__ import annotations
 
 import functools
-import gc
 import logging
 import threading
-from contextlib import nullcontext
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -177,126 +177,69 @@ class _Sums:
             self.add_bad(bad_c, bad_a, flag)
 
 
-class _FrameGraph:
-    """The first pass of a slab-rung frame as one replayable unit: on
-    CUDA a ``torch.cuda.CUDAGraph`` of ``_body`` (kernel #1 and its
-    volume weight, the slab layout, kernel #3, CN off the table, the
-    angle histograms, and the frame's adds), one launch a frame in place
-    of ~300 and no wait for the card; on the CPU ``_body`` runs eagerly.
+def _graph_body(cfg: _Config, k_cap: int, x: dict, group: "_Sums"):
+    """The fused step's slab-rung frame from the static inputs ``x``:
+    its weighted RDF into ``group.rdf``, its flag-masked BAD counts into
+    the group's accumulators, its CN row and flag into the group's slot
+    ``x["slot"]``."""
+    rdf, cn, bad_c, bad_a, flag, _ = _frame_math(
+        cfg, x["pos"], x["cell"], x["inv"], x["volume"], x["species"],
+        x["cutoff"], k_cap, True, "slab")
+    group.rdf += rdf.to(torch.float64)
+    group.add_bad(bad_c, bad_a, flag)
+    group.cn.index_copy_(0, x["slot"], cn[None])
+    group.flag.index_copy_(0, x["slot"], flag[None])
 
-    ``_body`` reads static inputs, filled by device-to-device copies
-    before each frame: the frame's positions, cell, inverse cell, volume
-    and slot in its group, and the step's species and cutoffs. Its
-    outputs are ``group``, a ``_Sums`` of one group: the frame's weighted
-    RDF goes into ``rdf`` (the step's RDF sum, shared by the step's
-    graphs, so frames add in the eager order), its flag-masked BAD
-    counts into the group's float64 accumulators, its CN row and flag
-    into the group's slot. The graph is captured at the first frame, on
-    a side stream of its own after one eager pass there (which makes
-    kernel #1's work queue for that stream and runs its root check); the
-    outputs are restored after that pass, so every frame counts once.
-    One step function owns its graphs (``_make_chunked_step``)."""
+
+class _FrameGraph:
+    """The first pass of a group of slab-rung frames, one
+    ``frame_table.FrameGraph`` replay a frame on the card (eager on the
+    CPU): kernel #1 and its volume weight, the slab layout, kernel #3,
+    CN off the table, the angle histograms, and the frame's adds
+    (``_graph_body``).
+
+    The static inputs are the frame's positions, cell, inverse cell,
+    volume and slot in its group, and the step's species and cutoffs.
+    The outputs are ``group``, a ``_Sums`` of one group: the frame's
+    weighted RDF goes into ``rdf`` (the step's RDF sum, shared by the
+    step's graphs, so frames add in the eager order), its flag-masked
+    BAD counts into the group's float64 accumulators, its CN row and
+    flag into the group's slot. One step function owns its graphs
+    (``_make_chunked_step``)."""
 
     def __init__(self, cfg: _Config, n_pad: int, k_cap: int, fpc: int,
                  rdf: torch.Tensor):
-        self.device = dev = rdf.device
+        dev = rdf.device
         s, f32 = cfg.table.n_species, torch.float32
-        self.cfg, self.k_cap, self.fpc = cfg, k_cap, fpc
-        self.pos = torch.zeros((n_pad, 3), dtype=f32, device=dev)
-        self.cell = torch.zeros((3, 3), dtype=f32, device=dev)
-        self.inv = torch.zeros((3, 3), dtype=f32, device=dev)
-        self.volume = torch.zeros((), dtype=f32, device=dev)
-        self.species = torch.zeros(n_pad, dtype=torch.int32, device=dev)
-        self.cutoff = torch.zeros((s, s), dtype=f32, device=dev)
+        self.fpc = fpc
+        x = {
+            "pos": torch.zeros((n_pad, 3), dtype=f32, device=dev),
+            "cell": torch.zeros((3, 3), dtype=f32, device=dev),
+            "inv": torch.zeros((3, 3), dtype=f32, device=dev),
+            "volume": torch.zeros((), dtype=f32, device=dev),
+            "species": torch.zeros(n_pad, dtype=torch.int32, device=dev),
+            "cutoff": torch.zeros((s, s), dtype=f32, device=dev),
+            "slot": torch.zeros(1, dtype=torch.int64, device=dev),
+        }
         self.slots = torch.arange(fpc, device=dev)
-        self.slot = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.group = _Sums(cfg, fpc, dev)  # its own BAD, CN and flags
-        self.group.rdf = rdf
-        self.graph = None
-        self.launches = {}  # launch.<kernel> -> launches a replay
-
-    def _body(self):
-        rdf, cn, bad_c, bad_a, flag, _ = _frame_math(
-            self.cfg, self.pos, self.cell, self.inv, self.volume,
-            self.species, self.cutoff, self.k_cap, True, "slab")
-        g = self.group
-        g.rdf += rdf.to(torch.float64)
-        g.add_bad(bad_c, bad_a, flag)
-        g.cn.index_copy_(0, self.slot, cn[None])
-        g.flag.index_copy_(0, self.slot, flag[None])
-
-    def _load(self, a: StepArgs, f: int, slot: int):
-        self.pos.copy_(a.positions[f])
-        self.cell.copy_(a.cells[f])
-        self.inv.copy_(a.inv_cells[f])
-        self.volume.copy_(a.volumes[f])
-        self.slot.copy_(self.slots[slot:slot + 1])
-
-    def _capture(self):
-        """One eager pass on a side stream, then the capture there. The
-        launches the capture recorded did not run: they leave the
-        counters, and each replay counts them."""
-        with tracing.span("pipeline.capture"):
-            g = self.group
-            outs = (g.rdf, g.bad_c, g.bad_a, g.cn, g.flag)
-            saved = [t.clone() for t in outs]
-            main = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(main)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.stream(side):
-                self._body()
-                before = tracing.snapshot()["counts"]
-                # no cycle collection while capturing: one that freed
-                # another step's graph would call CUDA, which capture
-                # forbids
-                collecting = gc.isenabled()
-                gc.disable()
-                try:
-                    graph.capture_begin(capture_error_mode="thread_local")
-                    try:
-                        self._body()
-                    finally:
-                        graph.capture_end()
-                finally:
-                    if collecting:
-                        gc.enable()
-                after = tracing.snapshot()["counts"]
-            main.wait_stream(side)
-            for t, old in zip(outs, saved):
-                t.copy_(old)
-            self.launches = {k: n - before.get(k, 0)
-                             for k, n in after.items()
-                             if k.startswith("launch.")
-                             and n != before.get(k, 0)}
-            for k, n in self.launches.items():
-                tracing.count(k, -n)
-            self.graph = graph
-            tracing.count("pipeline.graph_captures")
+        g = self.group = _Sums(cfg, fpc, dev)  # its own BAD, CN and flags
+        g.rdf = rdf
+        self.frames = frame_table.FrameGraph(
+            functools.partial(_graph_body, cfg, k_cap, x, g), x,
+            (g.rdf, g.bad_c, g.bad_a, g.cn, g.flag), "pipeline")
 
     def first_pass(self, a: StepArgs, i: int):
         """Frames i .. i + fpc - 1 into the group's slots and accumulators
         (zeroed first); returns the group's flags."""
-        self.species.copy_(a.species_idx)
-        self.cutoff.copy_(a.cutoff_matrix)
+        self.frames.load({"species": a.species_idx,
+                          "cutoff": a.cutoff_matrix})
         self.group.bad_c.zero_()
         self.group.bad_a.zero_()
-        on_card = self.device.type == "cuda"
-        # capture and replay use the current device's streams
-        with torch.cuda.device(self.device) if on_card else nullcontext():
-            for j in range(self.fpc):
-                if on_card and self.graph is None:
-                    self._load(a, i + j, j)
-                    self._capture()
-                with tracing.span("pipeline.frame"):
-                    self._load(a, i + j, j)
-                    if on_card:
-                        self.graph.replay()
-                    else:
-                        self._body()
-                    for k, n in self.launches.items():
-                        tracing.count(k, n)
-                    tracing.count("pipeline.frames_graphed", int(on_card))
+        self.frames.run(
+            ({"pos": a.positions[i + j], "cell": a.cells[i + j],
+              "inv": a.inv_cells[i + j], "volume": a.volumes[i + j],
+              "slot": self.slots[j:j + 1]} for j in range(self.fpc)),
+            span="pipeline.frame")
         return self.group.flag
 
     def add_group(self, sums: "_Sums", i: int):

@@ -16,8 +16,14 @@ crowded frame reruns up the shared ladder on the 1-level window (#4's)
 at K 16 and 32; ``amof_tpu`` reruns the whole trajectory from K 16
 without the slab. Histograms are order-invariant, so the results must
 agree.
+
+The first pass runs each frame through its frame graph's body (eager on
+the CPU); its counts, with and without the ladder started at K 8, equal
+those of the frame-by-frame loop it replaced bit for bit
+(``test_torch_fused_graph.eager_bad_counts``).
 """
 
+import functools
 import itertools
 
 import numpy as np
@@ -26,10 +32,12 @@ import torch
 
 import amof_tpu.bad as jbad
 import amof_tpu_torch.bad as tbad
+from amof_tpu_torch import tracing
 from amof_tpu_torch.ops import bad_kernel, frame_table
 
 from test_torch_api_rdf import batches
 from test_torch_bad_msd import assert_bins_within_one
+from test_torch_fused_graph import counted, eager_bad_counts
 from test_torch_pipeline import CUTOFFS, glass
 
 torch.set_num_threads(2)
@@ -92,15 +100,19 @@ def assert_labeled_equal(got, ref_arr):
 
 
 @pytest.fixture
-def ladder(monkeypatch):
+def ladder(monkeypatch, traj):
     """Start the first pass at K 8; log each frame pass's (frame, K,
     rung)."""
     passes = []
     fn = frame_table.frame_pass
+    rows = torch.from_numpy(traj[0])
 
     def logged(plan, pos, *a, **k):
-        # pos is row f of the trajectory's [F, N, 3] positions
-        passes.append((pos.storage_offset() // pos.numel(), a[4], a[5]))
+        # pos holds row f of the trajectory's [F, N, 3] positions (the
+        # first pass reads a copy of it)
+        f = next(f for f, row in enumerate(rows)
+                 if torch.equal(pos[:len(row)], row))
+        passes.append((f, a[4], a[5]))
         return fn(plan, pos, *a, **k)
 
     monkeypatch.setattr(frame_table, "FIRST_CAPACITY", 8)
@@ -134,6 +146,46 @@ def test_bad_by_cn_matches_amof_tpu(traj, ref, normalization, forced_ladder,
                                        device="cpu").data["bad"]
     assert_labeled_equal(got, ref[normalization])
     assert got.coords["cn"].max() > 16  # the crowded Zn's X-Zn-X row
+
+
+@pytest.mark.parametrize("by_cn", [False, True])
+@pytest.mark.parametrize("forced_ladder", [False, True])
+def test_first_pass_body_equals_eager_loop(traj, by_cn, forced_ladder,
+                                           request, monkeypatch):
+    """The first pass through its frame graph's body (the CPU runs it
+    eagerly, on copies of each frame's inputs) gives the counts of the
+    frame-by-frame loop bit for bit: the crowded frame adds nothing in
+    the first pass and its rerun is kept once. So do ``bad_columns`` and
+    ``bad_by_cn_dataset``. The CPU counts every first-pass frame in
+    ``bad.frames`` and replays none."""
+    if forced_ladder:
+        request.getfixturevalue("ladder")
+    batch, _ = batches(*traj)
+    (counts, names, theta), moved = counted(lambda: tbad._compute_counts(
+        batch, CUTOFFS, DTHETA, by_cn=by_cn, device="cpu"))
+    ref = eager_bad_counts(batch, CUTOFFS, DTHETA, by_cn, "cpu")
+    assert counts.dtype == ref.dtype == np.float64
+    np.testing.assert_array_equal(counts, ref)
+    assert counts.shape[1] == (33 if by_cn else 1)  # the rerun's K 32
+    assert moved["bad.frames"] == 2
+    assert "bad.frames_graphed" not in moved
+    assert "bad.graph_captures" not in moved
+    assert tracing.snapshot()["counts"]["bad.frames_graphed"] == 0
+    if by_cn:
+        public = functools.partial(tbad.bad_by_cn_dataset,
+                                   normalization="partial")
+    else:
+        public = tbad.bad_columns
+    got = public(batch, CUTOFFS, dtheta=DTHETA, device="cpu")
+    monkeypatch.setattr(tbad, "_compute_counts",
+                        lambda *a, **k: (ref, names, theta))
+    want = public(batch, CUTOFFS, dtheta=DTHETA, device="cpu")
+    if by_cn:
+        assert_labeled_equal(got["bad"], want["bad"])
+    else:
+        assert list(got) == list(want)
+        for name in want:
+            np.testing.assert_array_equal(got[name], want[name])
 
 
 def test_frame_by_cn_counts_match_amof_tpu():

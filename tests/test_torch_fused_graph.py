@@ -21,6 +21,14 @@ slab-rung frame pass and a group's replays run under
 and a 272-atom cell (no slab rung) replays nothing; no cycle collection
 runs while a graph is captured.
 
+The BAD entry point's first pass (``bad._compute_counts``), graphed on
+the card with the same ``frame_table.FrameGraph``: its counts and
+columns (``bad_columns``, ``bad_by_cn_dataset``) equal the frame-by-
+frame loop's (``eager_bad_counts``) bit for bit on two pieces with
+different slab plans and with a frame over K; one capture a call, whose
+device memory the next call reuses; no wait for the card from the
+capture's end to the flags' read.
+
 The module imports neither jax nor the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -128,6 +136,58 @@ def eager_chunked(fa, cfg, a_blk, args):
     if grouped:
         fa._rerun_flagged(cfg, a, sums, reruns)
     return fa._finish(a, sums, cfg.table.n_species, a_blk), reruns
+
+
+def eager_bad_counts(batch, cutoffs, dtheta, by_cn, device):
+    """``bad._compute_counts``' counts as the entry point ran before frame
+    graphs: every frame's pass on its own row at K ``FIRST_CAPACITY``,
+    its counts added into the float64 sums under its flag one frame at a
+    time, the flags stacked and read once, then the flagged frames up
+    the ladder."""
+    _, z_to_idx, plan, a = frame_table.entry_table(
+        batch, cutoffs, torch.device(device), with_bad=True)
+    unique = frame_table.species_table(np.asarray(batch.species))[0]
+    pairs, _ = frame_table.enumerate_specs(cutoffs, unique)
+    bins = int(180 // dtheta) + 1
+    s = plan.n_species
+
+    def histograms(k):
+        c = k + 1 if by_cn else 1
+        return [a.positions.new_zeros((s, s, c, bins), dtype=torch.float64),
+                a.positions.new_zeros((s, c, bins), dtype=torch.float64)]
+
+    def run(f, k, rung, out):
+        for o in out:
+            o.zero_()
+        _, _, flag, missed = frame_table.frame_pass(
+            plan, a.positions[f], a.cells[f], a.inv_cells[f],
+            a.species_idx, a.cutoff_matrix, k, rung, float(dtheta), bins,
+            by_cn=by_cn, out=out)
+        return flag, missed, out
+
+    k0 = frame_table.FIRST_CAPACITY
+    sums, frame = histograms(k0), histograms(k0)
+    flags = []
+    for f in range(a.positions.shape[0]):
+        flag, _, _ = run(f, k0, plan.first_rung(), frame)
+        frame_table.add_unflagged(*sums, *frame, flag)
+        flags.append(flag)
+    flagged = torch.stack(flags).nonzero().flatten().tolist()
+
+    def keep(f, out):
+        wider = out[0].shape[-2] - sums[0].shape[-2]
+        if wider:
+            sums[:] = [torch.nn.functional.pad(acc, (0, 0, 0, wider))
+                       for acc in sums]
+        for acc, o in zip(sums, out):
+            acc += o
+
+    assert not frame_table.rerun_flagged(
+        flagged, k0, plan.window,
+        lambda f, k, rung: run(f, k, rung, histograms(k)), keep)
+    conc, center_any = (x.cpu().numpy() for x in sums)
+    return np.stack([bad_kernel.select_spec_counts(conc, center_any, sp)
+                     for sp in frame_table.spec_indices(pairs, z_to_idx)])
 
 
 def assert_outputs_equal(got, ref):
@@ -547,3 +607,139 @@ def test_no_cycle_collection_while_capturing(cuda, net_pieces, monkeypatch):
     assert seen == [False] and gc.isenabled()
     assert counts["pipeline.graph_captures"] == 1
     assert counts["pipeline.frames_graphed"] == GLASS_FRAMES
+
+
+# --------------------------------------------------------------------------
+# The BAD entry point's first pass, graphed (on the card)
+# --------------------------------------------------------------------------
+
+def zn_n(config):
+    """The entry cell's cutoffs: Zn-N alone."""
+    return {"Zn-N": config["cutoffs_A"]["Zn-N"]}
+
+
+def crowd_zn(batch, frame, n_crowd=20, seed=3):
+    """``n_crowd`` N atoms put within 1.0-1.8 A of the first Zn in
+    ``frame``: that Zn then has more than 16 N neighbours."""
+    rng = np.random.default_rng(seed)
+    first_zn = int(np.flatnonzero(batch.species == 30)[0])
+    first_n = int(np.flatnonzero(batch.species == 7)[0])
+    pos = np.array(batch.positions)
+    box = np.diag(batch.cell[0]).astype(np.float64)
+    off = rng.normal(0, 1, (n_crowd, 3))
+    off *= (rng.uniform(1.0, 1.8, n_crowd)
+            / np.linalg.norm(off, axis=1))[:, None]
+    pos[frame, first_n:first_n + n_crowd] = (pos[frame, first_zn] + off) % box
+    return batch._replace(positions=pos.astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("by_cn", [False, True])
+def test_graphed_bad_equals_eager_loop_on_two_plans(cuda, net_pieces, by_cn,
+                                                    monkeypatch):
+    """Each call captures one graph of its own (the first piece twice:
+    nothing is cached across calls) and replays it every frame; counts
+    equal the frame-by-frame loop bit for bit, and so do the columns."""
+    from amof_tpu_torch import bad
+
+    config, batches = net_pieces
+    cutoffs, dtheta = zn_n(config), config["bad_dtheta_deg"]
+    plans = []
+    for batch in batches + batches[:1]:
+        (counts, names, theta), moved = counted(lambda: bad._compute_counts(
+            batch, cutoffs, dtheta, by_cn=by_cn, device=cuda))
+        ref = eager_bad_counts(batch, cutoffs, dtheta, by_cn, cuda)
+        np.testing.assert_array_equal(counts, ref)
+        assert float(ref.sum()) > 0
+        assert moved["bad.frames"] == moved["bad.frames_graphed"] \
+            == GLASS_FRAMES
+        assert moved["bad.graph_captures"] == 1
+        plans.append(frame_table.entry_table(batch, cutoffs, cuda,
+                                             with_bad=True)[2].slab)
+    assert plans[0] is not None and plans[0] != plans[1]
+    public = bad.bad_by_cn_dataset if by_cn else bad.bad_columns
+    got = public(batches[0], cutoffs, dtheta=dtheta, device=cuda)
+    monkeypatch.setattr(bad, "_compute_counts",
+                        lambda *a, **k: (ref, names, theta))
+    want = public(batches[0], cutoffs, dtheta=dtheta, device=cuda)
+    if by_cn:
+        np.testing.assert_array_equal(got["bad"].values, want["bad"].values)
+    else:
+        assert list(got) == list(want)
+        for name in want:
+            np.testing.assert_array_equal(got[name], want[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("by_cn", [False, True])
+def test_graphed_bad_equals_eager_loop_with_a_frame_over_k(cuda, net_pieces,
+                                                          by_cn):
+    """A frame over K 16 adds nothing in its replay and its rerun up the
+    ladder is kept once: counts equal the frame-by-frame loop's."""
+    from amof_tpu_torch import bad
+
+    config, batches = net_pieces
+    cutoffs, dtheta = zn_n(config), config["bad_dtheta_deg"]
+    batch = crowd_zn(batches[0], 5)
+    (counts, _, _), moved = counted(lambda: bad._compute_counts(
+        batch, cutoffs, dtheta, by_cn=by_cn, device=cuda))
+    ref = eager_bad_counts(batch, cutoffs, dtheta, by_cn, cuda)
+    np.testing.assert_array_equal(counts, ref)
+    assert counts.shape[1] == (33 if by_cn else 1)  # rerun at K 32
+    assert moved["bad.frames_graphed"] == GLASS_FRAMES
+    assert moved["bad.graph_captures"] == 1
+
+
+@pytest.mark.cuda
+def test_bad_replays_never_wait_for_the_card(cuda, net_pieces, monkeypatch):
+    """From the end of the capture to the end of the first pass the card
+    is never waited for: the flags' read after it stays the first pass's
+    only wait."""
+    from amof_tpu_torch import bad
+
+    config, batches = net_pieces
+    cutoffs, dtheta = zn_n(config), config["bad_dtheta_deg"]
+    ref = bad.bad_columns(batches[1], cutoffs, dtheta=dtheta, device=cuda)
+    capture, run = frame_table.FrameGraph._capture, frame_table.FrameGraph.run
+    strict = []
+
+    def capture_then_strict(self):
+        capture(self)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        strict.append(self.prefix)
+
+    def run_then_lenient(self, *a, **kw):
+        try:
+            return run(self, *a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(frame_table.FrameGraph, "_capture",
+                        capture_then_strict)
+    monkeypatch.setattr(frame_table.FrameGraph, "run", run_then_lenient)
+    got, moved = counted(lambda: bad.bad_columns(
+        batches[1], cutoffs, dtheta=dtheta, device=cuda))
+    assert strict == ["bad"]
+    assert moved["bad.frames_graphed"] == GLASS_FRAMES
+    for name in ref:
+        np.testing.assert_array_equal(got[name], ref[name])
+
+
+@pytest.mark.cuda
+def test_bad_calls_reuse_their_capture_memory(cuda, net_pieces):
+    """Each call's graph dies with the call, but its capture takes this
+    thread's capture stream and memory pool: once both pieces have run,
+    later calls reserve no more device memory."""
+    from amof_tpu_torch import bad
+
+    config, batches = net_pieces
+    cutoffs, dtheta = zn_n(config), config["bad_dtheta_deg"]
+    for batch in batches:
+        bad.bad_columns(batch, cutoffs, dtheta=dtheta, device=cuda)
+    reserved = torch.cuda.memory_reserved(cuda)
+    for batch in batches + batches:
+        _, moved = counted(lambda: bad.bad_columns(
+            batch, cutoffs, dtheta=dtheta, device=cuda))
+        assert moved["bad.graph_captures"] == 1
+    assert torch.cuda.memory_reserved(cuda) == reserved
