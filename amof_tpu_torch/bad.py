@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import functools
 import logging
-import threading
 
 import numpy as np
 import torch
@@ -52,21 +51,6 @@ logger = logging.getLogger(__name__)
 # 10.5-11.9 ms against 5.4-6.4 ms an eager frame, and whole calls of 2, 3
 # and 4 frames took 1.33, 0.99 and 0.82 times as long graphed as eager
 GRAPH_MIN_FRAMES = 4
-
-# each thread's capture stream and memory pool a device
-# (``frame_table.CaptureMemory``), which every call's graph takes: state
-# of the device's memory, as the caching allocator's own is
-_memory = threading.local()
-
-
-def _capture_memory(dev):
-    """This thread's ``frame_table.CaptureMemory`` on ``dev``: the graphs
-    die with their calls, their device memory stays for the next."""
-    by_device = _memory.__dict__.setdefault("by_device", {})
-    if dev not in by_device:
-        by_device[dev] = frame_table.CaptureMemory(dev)
-    return by_device[dev]
-
 
 def bad_table(counts, names, theta, dtheta):
     """Ordered BAD columns {"theta", one per spec with angles} from the
@@ -118,7 +102,7 @@ def _first_pass(plan, a, k_cap: int, dtheta: float, bins: int, by_cn: bool,
                and n_frames >= GRAPH_MIN_FRAMES)
     graph = frame_table.FrameGraph(
         body, x, (*sums, flags), "bad", graphed=graphed,
-        memory=_capture_memory(dev) if graphed else None)
+        memory=frame_table.capture_memory(dev) if graphed else None)
     graph.load({"species": a.species_idx, "cutoff": a.cutoff_matrix})
     slots = torch.arange(n_frames, device=dev)
     tracing.count("bad.frames", n_frames)

@@ -12,8 +12,8 @@
 // (self-exclusion by original atom index). Blockers are unwrapped to the
 // slot's column frame in x/y; z is minimum-imaged per pair from the
 // point's fractional z. Every other row (inactive slots, rows past
-// n_z * chunk of a column over col_cap) is written False / 0 here, so the
-// wrapper's outputs need no clearing.
+// n_z * chunk of a column over col_cap, rows outside every column) is
+// written False / 0 here, so the wrapper's outputs need no clearing.
 //
 // Design. Work comes in groups of consecutive centers of one active slot:
 // its nc candidates in min(nc, P) groups of near-equal size (P = chunk /
@@ -141,7 +141,9 @@ struct Args {
   int* inu;
 };
 
-// Rows outside every active slot: False and index 0.
+// Rows outside every active slot: False and index 0. That includes rows
+// outside every column, before c_bounds[0] or from c_bounds[n_cols] on
+// (no layout the wrapper builds has them; cand_end has no entry there).
 __device__ void clear_inactive(const Args& p, int a) {
   int lo = 0, hi = p.n_cols + 1;  // last column start <= a
   while (lo < hi) {
@@ -149,8 +151,11 @@ __device__ void clear_inactive(const Args& p, int a) {
     if (p.c_bounds[mid] <= a) lo = mid + 1; else hi = mid;
   }
   const int col = lo - 1;
-  const int zs = (a - p.c_bounds[col]) / p.chunk;
-  if (zs < p.n_z && p.c_bounds[col] + zs * p.chunk < p.cand_end[col]) return;
+  if (col >= 0 && col < p.n_cols) {
+    const int zs = (a - p.c_bounds[col]) / p.chunk;
+    if (zs < p.n_z && p.c_bounds[col] + zs * p.chunk < p.cand_end[col])
+      return;
+  }
   const long long o = (long long)a * p.k_dirs;
   for (int k = 0; k < p.k_dirs; ++k) {
     p.valid[o + k] = 0;

@@ -15,6 +15,7 @@ or a window miss) reruns on the next and adds its counts there.
 from __future__ import annotations
 
 import gc
+import threading
 from contextlib import contextmanager, nullcontext
 from typing import NamedTuple, Optional
 
@@ -288,6 +289,21 @@ class CaptureMemory:
                 with _capturing(self._holder, None):
                     torch.zeros(1, device=device)
         self.pool = self._holder.pool()
+
+
+# each thread's capture stream and memory pool a device, which every
+# call's graph takes: state of the device's memory, as the caching
+# allocator's own is
+_memory = threading.local()
+
+
+def capture_memory(device) -> CaptureMemory:
+    """This thread's ``CaptureMemory`` on ``device``: the graphs die with
+    their calls, their device memory stays for the next."""
+    by_device = _memory.__dict__.setdefault("by_device", {})
+    if device not in by_device:
+        by_device[device] = CaptureMemory(device)
+    return by_device[device]
 
 
 class FrameGraph:

@@ -19,14 +19,32 @@ Counterpart of ``amof_tpu/pore/batch.py`` ``BatchedPore``. Two plans:
     surface sampling (sorted window or full).
 
 Frames run in groups of ``frames_per_call``; each group moves one stacked
-[5, frames] array to the host. Grid dims, windows and sample counts are
-static per trajectory (computed over all frames, so NPT cells work); a
-window miss is flagged exactly per frame. In ``mc`` mode those frames
-rerun with 2x, then 4x windows; past that, and in ``grid`` mode, they are
-recomputed by ``zeopp.analyze_frame`` with no window. With
-``winding="exact"`` each frame's wrap-edge label pairs come to the host
-and ``winding.face_test_is_exact`` certifies the face test; a frame with
-a composite channel the test missed is recomputed the same way.
+[5, frames] array to the host. On the card's column plan each frame is
+one replay of a CUDA graph of the frame pass (``ops/frame_table.py``
+``FrameGraph``, captured once a call), so the host queues a frame in a
+few launches instead of ~400 and never waits for the card between
+frames; elsewhere the same pass runs eagerly. Grid dims, windows and
+sample counts are static per trajectory (computed over all frames, so
+NPT cells work); a window miss is flagged exactly per frame. In ``mc``
+mode those frames rerun with 2x, then 4x windows; past that, and in
+``grid`` mode, they are recomputed by ``zeopp.analyze_frame`` with no
+window. With ``winding="exact"`` each frame's wrap-edge label pairs come
+to the host and ``winding.face_test_is_exact`` certifies the face test; a
+frame with a composite channel the test missed is recomputed the same
+way.
+
+Spans and counters (``amof_tpu_torch.tracing``): ``pore.prepare``
+(children ``.plan``, ``.upload``), ``pore.frame`` (one frame, first pass
+or retry: its inputs' copies and a replay, or an eager pass, whose
+children on the column plan are ``pore.masks``, ``pore.labels`` and
+``pore.surface``), ``pore.capture``, ``pore.download`` (a group's copy
+to the host, which waits for the card) and ``pore.retry`` (the miss
+ladder of ``run``); counters ``pore.frames`` (first-pass frames of
+``run``), ``pore.frames_missed`` (those the first pass flagged),
+``pore.frames_retried`` (frames sent to a widened-window retry, once a
+rung), ``pore.frames_per_frame`` (frames recomputed by
+``zeopp.analyze_frame``), ``pore.frames_graphed`` and
+``pore.graph_captures``.
 """
 
 from __future__ import annotations
@@ -37,9 +55,11 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from amof_tpu_torch import tracing
 from amof_tpu_torch.core.cellmath import cell_widths
 from amof_tpu_torch.core.frames import as_frame_batch
 from amof_tpu_torch.data import elements
+from amof_tpu_torch.ops import frame_table
 from amof_tpu_torch.ops.pair_engine import matvec3
 from amof_tpu_torch.pore import grid_kernel, surface_kernel, winding, zeopp
 from amof_tpu_torch.pore.zeopp import (
@@ -133,21 +153,26 @@ def _frame(st: _Static, pos, cell, inv, volume, emit_faces: bool):
     of one frame on the column plan."""
     cp, sp = st.col_plan, st.surf_plan
     frac = _frac(pos, inv)
-    m_probe, m_chan, fit_pts, miss_d = surface_kernel.void_masks_points(
-        frac, cell, st.radii, cp["grid"], probe=st.probe, chan=st.chan,
-        nbx=cp["nbx"], nby=cp["nby"], window=cp["window"],
-        pts_tiled=st.pts_tiled)
-    cls = grid_kernel.void_classification_mask(m_chan, emit_faces)
+    with tracing.span("pore.masks"):
+        m_probe, m_chan, fit_pts, miss_d = surface_kernel.void_masks_points(
+            frac, cell, st.radii, cp["grid"], probe=st.probe, chan=st.chan,
+            nbx=cp["nbx"], nby=cp["nby"], window=cp["window"],
+            pts_tiled=st.pts_tiled)
+    with tracing.span("pore.labels"):
+        cls = grid_kernel.void_classification_mask(m_chan, emit_faces)
     _, accessible, pocket = cls[:3]
     av, nav = _volume(st, volume, m_probe, accessible, pocket, fit_pts)
     # exact prefilter: points can only count on void voxels, which are
     # exactly m_chan; slots without a candidate atom skip the blockers
-    valid, i_pt, i_nu, gis, rs, miss_s = surface_kernel.surface_valid_columns(
-        frac, cell, st.radii, st.probe, st.dirs, cp["grid"], nbx=sp["nbx"],
-        nby=sp["nby"], window=sp["window"], chunk=sp["chunk"],
-        col_cap=sp["col_cap"], cand_mask=m_chan, inv_cell=inv)
-    asa, nasa = _surface_sums(st, valid, i_pt, i_nu, gis, rs, accessible,
-                              pocket)
+    with tracing.span("pore.surface"):
+        valid, i_pt, i_nu, gis, rs, miss_s = (
+            surface_kernel.surface_valid_columns(
+                frac, cell, st.radii, st.probe, st.dirs, cp["grid"],
+                nbx=sp["nbx"], nby=sp["nby"], window=sp["window"],
+                chunk=sp["chunk"], col_cap=sp["col_cap"], cand_mask=m_chan,
+                inv_cell=inv))
+        asa, nasa = _surface_sums(st, valid, i_pt, i_nu, gis, rs,
+                                  accessible, pocket)
     out = torch.stack([asa, nasa, av, nav, (miss_d | miss_s).to(_F64)])
     return out, (cls[3] if emit_faces else None)
 
@@ -344,103 +369,145 @@ class BatchedPore:
         meta). ``step_fn(*args)`` returns (asa, nasa, av, nav, missed),
         numpy arrays over frames, and with ``winding="exact"`` the face
         label pairs, i32 [frames, 2, n_face]."""
+        with tracing.span("pore.prepare"):
+            return self._prepare(batch, device)
+
+    def _prepare(self, batch, device):
         dev = resolve_device(device)
         handle = warmup(device=dev)  # build + context overlap the plans
-        batch = as_frame_batch(batch)
-        cells = np.asarray(batch.cell, np.float64)
-        rad_table = elements.vdw_radius_array(overrides=self.radii)
-        radii = rad_table[np.asarray(batch.species)].astype(np.float32)
-        n_at = len(radii)
-        volumes = np.abs(np.linalg.det(cells)).astype(np.float32)
-        mass_amu = float(np.sum(elements.mass_of(np.asarray(batch.species))))
+        with tracing.span("pore.prepare.plan"):
+            batch = as_frame_batch(batch)
+            cells = np.asarray(batch.cell, np.float64)
+            rad_table = elements.vdw_radius_array(overrides=self.radii)
+            radii = rad_table[np.asarray(batch.species)].astype(np.float32)
+            n_at = len(radii)
+            volumes = np.abs(np.linalg.det(cells)).astype(np.float32)
+            mass_amu = float(np.sum(elements.mass_of(
+                np.asarray(batch.species))))
 
-        # static grid dims: conservative per-axis max over NPT frames
-        if self.grid is None:
-            res = (self.conn_resolution
-                   if (self.vol_method == "mc" and self.conn_resolution)
-                   else self.resolution)
-            grid = _grid_dims(
-                np.linalg.norm(cells, axis=2).max(axis=0)[:, None]
-                * np.eye(3), res)
-        else:
-            grid = tuple(int(g) for g in self.grid)
-        # directions per atom follow Zeo++'s allocation (num_samples over
-        # all atom spheres), with a floor of 8
-        k = max(8, self.num_samples // max(1, n_at))
-        dirs = grid_kernel.fibonacci_sphere(k)
-        meta = {"mesh": None, "device": str(dev), "k": k,
-                "mass_amu": mass_amu, "volumes": volumes,
-                "dist_window": None, "surf_window": None, "dist2": None,
-                "col_plan": None, "surf_plan": None}
-        radii_t = torch.from_numpy(radii).to(dev)
-        dirs_t = torch.from_numpy(dirs).to(dev)
+            # static grid dims: conservative per-axis max over NPT frames
+            if self.grid is None:
+                res = (self.conn_resolution
+                       if (self.vol_method == "mc" and self.conn_resolution)
+                       else self.resolution)
+                grid = _grid_dims(
+                    np.linalg.norm(cells, axis=2).max(axis=0)[:, None]
+                    * np.eye(3), res)
+            else:
+                grid = tuple(int(g) for g in self.grid)
+            # directions per atom follow Zeo++'s allocation (num_samples
+            # over all atom spheres), with a floor of 8
+            k = max(8, self.num_samples // max(1, n_at))
+            dirs = grid_kernel.fibonacci_sphere(k)
+            meta = {"mesh": None, "device": str(dev), "k": k,
+                    "mass_amu": mass_amu, "volumes": volumes,
+                    "dist_window": None, "surf_window": None, "dist2": None,
+                    "col_plan": None, "surf_plan": None}
 
-        plans = self._column_plans(cells, radii, n_at, grid)
-        if plans is not None:
-            col_plan, surf_plan = plans
-            grid = col_plan["grid"]
-            pts_tiled = weights = None
-            if self.vol_method == "mc":
-                rng = np.random.default_rng(20240817)
-                pts = rng.random((self.num_samples, 3)).astype(np.float32)
-                pts_np, w_np = grid_kernel.assign_points_to_xytiles(
-                    pts, col_plan)
-                pts_tiled = torch.from_numpy(pts_np).to(dev)
-                weights = torch.from_numpy(w_np).to(dev)
-            st = _Static(
-                radii=radii_t, dirs=dirs_t, col_plan=col_plan,
-                surf_plan=surf_plan, probe=self.probe_radius,
-                chan=self.chan_radius, pts_tiled=pts_tiled,
-                weights=weights, n_real=float(self.num_samples))
-            frame_fn = _frame
-            meta.update(col_plan=col_plan, surf_plan=surf_plan)
-        else:
-            dxa, dist_window, surf_window, dist2, mc = self._field_plan(
-                cells, radii, n_at, grid)
-            if mc is not None:
-                pts, lo, hi, pwin = mc
-                mc = (torch.from_numpy(pts).to(dev),
-                      torch.from_numpy(lo).to(dev),
-                      torch.from_numpy(hi).to(dev), pwin)
-            st = _FieldStatic(
-                radii=radii_t, dirs=dirs_t, grid=grid,
-                probe=self.probe_radius, chan=self.chan_radius,
-                dist_window=dist_window, dxa=dxa, surf_window=surf_window,
-                mc=mc, dist2=dist2)
-            frame_fn = _frame_field
-            meta.update(dist_window=dist_window, surf_window=surf_window,
-                        dist2=dist2)
+            plans = self._column_plans(cells, radii, n_at, grid)
+            pts_np = w_np = mc = None
+            if plans is not None:
+                col_plan, surf_plan = plans
+                grid = col_plan["grid"]
+                if self.vol_method == "mc":
+                    rng = np.random.default_rng(20240817)
+                    pts = rng.random((self.num_samples, 3)).astype(
+                        np.float32)
+                    pts_np, w_np = grid_kernel.assign_points_to_xytiles(
+                        pts, col_plan)
+                meta.update(col_plan=col_plan, surf_plan=surf_plan)
+            else:
+                dxa, dist_window, surf_window, dist2, mc = self._field_plan(
+                    cells, radii, n_at, grid)
+                meta.update(dist_window=dist_window, surf_window=surf_window,
+                            dist2=dist2)
 
-        # frames per group: the largest divisor of the frame count up to
-        # frames_per_call
-        n_frames = batch.num_frames
-        fpc = next(d for d in range(min(max(self.frames_per_call, 1),
-                                        n_frames), 0, -1)
-                   if n_frames % d == 0)
-        emit_faces = self.winding == "exact"
+            # frames per group: the largest divisor of the frame count up
+            # to frames_per_call
+            n_frames = batch.num_frames
+            fpc = next(d for d in range(min(max(self.frames_per_call, 1),
+                                            n_frames), 0, -1)
+                       if n_frames % d == 0)
+            emit_faces = self.winding == "exact"
 
-        cells_t = torch.from_numpy(cells.astype(np.float32))
-        args = (
-            torch.from_numpy(np.asarray(batch.positions, np.float32)).to(dev),
-            cells_t.to(dev),
-            grid_kernel.host_inverse(cells_t).to(dev),
-            torch.from_numpy(volumes).to(dev),
-        )
+        with tracing.span("pore.prepare.upload"):
+            radii_t = torch.from_numpy(radii).to(dev)
+            dirs_t = torch.from_numpy(dirs).to(dev)
+            if plans is not None:
+                st = _Static(
+                    radii=radii_t, dirs=dirs_t, col_plan=col_plan,
+                    surf_plan=surf_plan, probe=self.probe_radius,
+                    chan=self.chan_radius,
+                    pts_tiled=(None if pts_np is None
+                               else torch.from_numpy(pts_np).to(dev)),
+                    weights=(None if w_np is None
+                             else torch.from_numpy(w_np).to(dev)),
+                    n_real=float(self.num_samples))
+                frame_fn = _frame
+            else:
+                if mc is not None:
+                    pts, lo, hi, pwin = mc
+                    mc = (torch.from_numpy(pts).to(dev),
+                          torch.from_numpy(lo).to(dev),
+                          torch.from_numpy(hi).to(dev), pwin)
+                st = _FieldStatic(
+                    radii=radii_t, dirs=dirs_t, grid=grid,
+                    probe=self.probe_radius, chan=self.chan_radius,
+                    dist_window=dist_window, dxa=dxa,
+                    surf_window=surf_window, mc=mc, dist2=dist2)
+                frame_fn = _frame_field
+            cells_t = torch.from_numpy(cells.astype(np.float32))
+            args = (
+                torch.from_numpy(np.asarray(batch.positions,
+                                            np.float32)).to(dev),
+                cells_t.to(dev),
+                grid_kernel.host_inverse(cells_t).to(dev),
+                torch.from_numpy(volumes).to(dev),
+            )
+
+        # each frame's pass into column f of ``res`` (and its face pairs
+        # into ``faces[f]``): on the card's column plan one CUDA graph
+        # replay a frame, captured at the first, no wait for the card in
+        # between; eagerly otherwise
+        x = {"pos": args[0].new_zeros(args[0].shape[1:]),
+             "cell": args[1].new_zeros((3, 3)),
+             "inv": args[2].new_zeros((3, 3)),
+             "volume": args[3].new_zeros(()),
+             "slot": torch.zeros(1, dtype=torch.int64, device=dev)}
+        res = torch.zeros((5, n_frames), dtype=_F64, device=dev)
+        faces = None
+        if emit_faces:
+            n_face = len(grid_kernel.face_axis_ids(grid))
+            faces = torch.zeros((n_frames, 2, n_face), dtype=torch.int32,
+                                device=dev)
+
+        def body():
+            out, pairs = frame_fn(st, x["pos"], x["cell"], x["inv"],
+                                  x["volume"], emit_faces)
+            res.index_copy_(1, x["slot"], out[:, None])
+            if emit_faces:
+                faces.index_copy_(0, x["slot"], pairs[None])
+
+        graphed = dev.type == "cuda" and frame_fn is _frame
+        graph = frame_table.FrameGraph(
+            body, x, (res,) if faces is None else (res, faces), "pore",
+            graphed=graphed,
+            memory=frame_table.capture_memory(dev) if graphed else None)
+        slots = torch.arange(n_frames, device=dev)
 
         def step_fn(positions, cells_f, inv_f, volumes_f):
-            groups, faces = [], []
+            groups = []
             for g0 in range(0, n_frames, fpc):
-                outs = [frame_fn(st, positions[f], cells_f[f], inv_f[f],
-                                 volumes_f[f], emit_faces)
-                        for f in range(g0, g0 + fpc)]
-                groups.append(torch.stack([o[0] for o in outs],
-                                          dim=1).cpu().numpy())  # [5, fpc]
-                if emit_faces:
-                    faces.append(torch.stack([o[1] for o in outs]).cpu())
+                graph.run(({"pos": positions[f], "cell": cells_f[f],
+                            "inv": inv_f[f], "volume": volumes_f[f],
+                            "slot": slots[f:f + 1]}
+                           for f in range(g0, g0 + fpc)), span="pore.frame")
+                with tracing.span("pore.download"):
+                    groups.append(res[:, g0:g0 + fpc].cpu().numpy())
             stacked = np.concatenate(groups, axis=1)
             out = tuple(stacked[j] for j in range(4)) + (stacked[4] != 0,)
             if emit_faces:
-                out += (torch.cat(faces).numpy(),)
+                out += (faces.cpu().numpy(),)
             return out
 
         meta.update(grid=grid, frames_per_call=fpc)
@@ -450,6 +517,7 @@ class BatchedPore:
         """``zeopp.analyze_frame`` -sa/-vol of frame ``i`` with no window:
         grid mode on the step's grid, mc mode on the fine grid (it
         converges to the MC value)."""
+        tracing.count("pore.frames_per_frame")
         out = zeopp.analyze_frame(
             batch.frame(int(i)), sa=True, vol=True,
             probe_radius=self.probe_radius, chan_radius=self.chan_radius,
@@ -459,55 +527,71 @@ class BatchedPore:
             window=None, device=device)
         return out["ASA_A^2"], out["NASA_A^2"], out["AV_A^3"], out["NAV_A^3"]
 
+    def _recompute(self, batch, idx, meta, device, cols):
+        """The miss ladder: frames ``idx`` flagged by a window miss, their
+        entries of ``cols`` (asa, nasa, av, nav) written in place."""
+        asa, nasa, av, nav = cols
+        if self.vol_method == "mc" and self.window_scale < 4:
+            # widened-window retry keeps the -vol column one estimator
+            logger.info(
+                "sorted-run capacity missed on %d/%d frames; "
+                "retrying them with %gx windows",
+                len(idx), len(asa), self.window_scale * 2,
+            )
+            tracing.count("pore.frames_retried", len(idx))
+            retry = BatchedPore(
+                probe_radius=self.probe_radius,
+                chan_radius=self.chan_radius,
+                num_samples=self.num_samples, radii=self.radii,
+                resolution=self.resolution, grid=self.grid,
+                window=self.window,
+                frames_per_call=self.frames_per_call,
+                vol_method=self.vol_method,
+                conn_resolution=self.conn_resolution,
+                window_scale=self.window_scale * 2,
+                winding=self.winding,
+            )
+            sub = batch._replace(
+                positions=np.asarray(batch.positions)[idx],
+                cell=np.asarray(batch.cell)[idx],
+                step=np.asarray(batch.step)[idx],
+            )
+            sub_records, _ = retry._run(sub, device, first=False)
+            for j, i in enumerate(idx):
+                asa[i] = sub_records[j]["ASA_A^2"]
+                nasa[i] = sub_records[j]["NASA_A^2"]
+                av[i] = sub_records[j]["AV_A^3"]
+                nav[i] = sub_records[j]["NAV_A^3"]
+        else:
+            # window misses are exact flags: recompute those frames with
+            # no window
+            logger.info(
+                "sorted-window capacity missed on %d/%d frames; "
+                "recomputing them exactly", len(idx), len(asa),
+            )
+            for i in idx:
+                asa[i], nasa[i], av[i], nav[i] = self._per_frame(
+                    batch, i, meta, device)
+
     def run(self, batch, device="cuda"):
         """Returns (records, meta): one dict of Zeo++ -sa/-vol output
         fields per frame."""
-        batch = as_frame_batch(batch)
+        return self._run(as_frame_batch(batch), device, first=True)
+
+    def _run(self, batch, device, first):
+        """``run``; ``first`` is False for a widened-window retry, whose
+        frames the counters of first-pass frames leave out."""
         step_fn, args, meta = self.prepare(batch, device)
         out = step_fn(*args)
+        del step_fn, args  # and the frame graph: a retry captures its own
         asa, nasa, av, nav, missed = (np.array(v) for v in out[:5])
+        if first:
+            tracing.count("pore.frames", len(missed))
+            tracing.count("pore.frames_missed", int(missed.sum()))
         if missed.any():
-            idx = np.nonzero(missed)[0]
-            if self.vol_method == "mc" and self.window_scale < 4:
-                # widened-window retry keeps the -vol column one estimator
-                logger.info(
-                    "sorted-run capacity missed on %d/%d frames; "
-                    "retrying them with %gx windows",
-                    len(idx), len(missed), self.window_scale * 2,
-                )
-                retry = BatchedPore(
-                    probe_radius=self.probe_radius,
-                    chan_radius=self.chan_radius,
-                    num_samples=self.num_samples, radii=self.radii,
-                    resolution=self.resolution, grid=self.grid,
-                    window=self.window,
-                    frames_per_call=self.frames_per_call,
-                    vol_method=self.vol_method,
-                    conn_resolution=self.conn_resolution,
-                    window_scale=self.window_scale * 2,
-                    winding=self.winding,
-                )
-                sub = batch._replace(
-                    positions=np.asarray(batch.positions)[idx],
-                    cell=np.asarray(batch.cell)[idx],
-                    step=np.asarray(batch.step)[idx],
-                )
-                sub_records, _ = retry.run(sub, device=device)
-                for j, i in enumerate(idx):
-                    asa[i] = sub_records[j]["ASA_A^2"]
-                    nasa[i] = sub_records[j]["NASA_A^2"]
-                    av[i] = sub_records[j]["AV_A^3"]
-                    nav[i] = sub_records[j]["NAV_A^3"]
-            else:
-                # window misses are exact flags: recompute those frames
-                # with no window
-                logger.info(
-                    "sorted-window capacity missed on %d/%d frames; "
-                    "recomputing them exactly", len(idx), len(missed),
-                )
-                for i in idx:
-                    asa[i], nasa[i], av[i], nav[i] = self._per_frame(
-                        batch, i, meta, device)
+            with tracing.span("pore.retry"):
+                self._recompute(batch, np.nonzero(missed)[0], meta, device,
+                                (asa, nasa, av, nav))
 
         if self.winding == "exact":
             # frames the miss handling recomputed already went through an

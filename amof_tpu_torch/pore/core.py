@@ -10,9 +10,10 @@ output files, and the '.pore' feather round-trip.
 Where every keyword argument is a batchable one of ``amof_tpu``
 (probe_radius, chan_radius, num_samples, radii, resolution, grid,
 window, winding) or ``BatchedPore``'s volume estimator (vol_method,
-conn_resolution: the bench's MC configuration), all frames run through
-``BatchedPore``. Any other option set (psd, chan, res, block, ray_atom,
-mass, ...) takes the per-frame path, as in ``amof_tpu``:
+conn_resolution: the bench's MC configuration) and group size
+(frames_per_call), all frames run through ``BatchedPore``. Any other
+option set (psd, chan, res, block, ray_atom, mass, ...) takes the
+per-frame path, as in ``amof_tpu``:
 ``zeopp.analyze_frame(frame, sa=True, vol=True, **kwargs)`` for each
 frame, fanned out over ``parallel`` host threads, keeping the scalar
 fields. A frame that the analysis rejects (a ValueError, TypeError,
@@ -44,7 +45,8 @@ logger = logging.getLogger(__name__)
 
 _BATCHABLE_KWARGS = frozenset(
     ("probe_radius", "chan_radius", "num_samples", "radii", "resolution",
-     "grid", "window", "winding", "vol_method", "conn_resolution")
+     "grid", "window", "winding", "vol_method", "conn_resolution",
+     "frames_per_call")
 )
 # what a frame's analysis raises on a frame it cannot analyse; every
 # RuntimeError (a build or kernel launch, CUDA, cuFFT, cuBLAS, out of

@@ -40,6 +40,7 @@ expression order; divisions by a count use a device tensor as divisor
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -275,12 +276,29 @@ def _sort_atoms_xycols(frac_atoms, extra, nbx: int, nby: int):
     return keys.contiguous(), payload[:, order].contiguous()
 
 
-def _runs(cstarts, c0: np.ndarray, window: int):
-    """(start i32[..., 3], rows to read i32[..., 3], missed bool[]) of the
-    three runs [cstarts[c0], cstarts[c0 + 3]) per row of ``c0``."""
-    c0_t = torch.as_tensor(c0, device=cstarts.device)
-    st = cstarts[c0_t]
-    en = cstarts[c0_t + 3]
+# A copy from host memory waits until the card has run everything queued
+# before it, so the per-frame path reads its constants from these caches.
+@functools.lru_cache(maxsize=64)
+def _on_device(values: tuple, dtype, device) -> torch.Tensor:
+    """``values`` as a tensor on ``device``, made once."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _neighbourhood_tensor(n_cols: int, nbx: int, nby: int, device):
+    """``_neighbourhood_columns`` of every column, on ``device``, made
+    once."""
+    return torch.as_tensor(_neighbourhood_columns(np.arange(n_cols), nbx,
+                                                  nby), device=device)
+
+
+def _runs(cstarts, n_cols: int, nbx: int, nby: int, window: int):
+    """(start i32[C, 3], rows to read i32[C, 3], missed bool[]) of the
+    three runs [cstarts[c0], cstarts[c0 + 3]) of each of the ``n_cols``
+    columns, c0 from ``_neighbourhood_columns``."""
+    c0 = _neighbourhood_tensor(n_cols, nbx, nby, cstarts.device)
+    st = cstarts[c0]
+    en = cstarts[c0 + 3]
     missed = torch.any((en - st) > window)
     cnt = torch.clamp(en - st, max=window)
     return st.to(_I32).contiguous(), cnt.to(_I32).contiguous(), missed
@@ -310,8 +328,7 @@ def masks_layout(frac_atoms, radii, nbx: int, nby: int,
     cstarts = torch.searchsorted(
         keys, torch.arange(nbx * stride + 1, dtype=_F32,
                            device=keys.device))
-    c0 = _neighbourhood_columns(np.arange(nbx * nby), nbx, nby)
-    st, cnt, missed = _runs(cstarts, c0, window)
+    st, cnt, missed = _runs(cstarts, nbx * nby, nbx, nby, window)
     return MaskLayout(payload, st, cnt, missed, keys, cstarts)
 
 
@@ -343,21 +360,24 @@ def surface_layout(frac_atoms, inv_cell, radii, r_probe, dirs, grid,
     gidx = torch.arange(n, dtype=_F32, device=dev)
     cand = surface_candidate_mask(frac_atoms, inv_cell, radii, r_probe,
                                   dirs, grid, cand_mask)
-    key_c = (bx * nby + by).to(_F32) + torch.where(
-        cand, fz * 0.5, 0.5 + fz * 0.5)
+    # exact keys (column, candidate first, fz) in separate bit fields: the
+    # bits of fz in [0, 1] (below 2^30) order it as a float. A float32 key
+    # col + fz / 2 rounds up to the next part for fz within an ulp of 1,
+    # and from the last column past c_bounds[C], outside every column.
+    part = (bx * nby + by).to(torch.int64) * 2 + (~cand).to(torch.int64)
+    key_c = (part << 30) + fz.contiguous().view(_I32).to(torch.int64)
     keys_c, order = torch.sort(key_c, stable=True)
     centers = torch.stack([fx, fy, fz, radii, gidx])[:, order].contiguous()
-    cols = torch.arange(n_cols + 1, dtype=_F32, device=dev)
+    cols = torch.arange(n_cols + 1, dtype=torch.int64, device=dev) << 31
     c_bounds = torch.searchsorted(keys_c, cols).to(_I32)
-    cand_end = torch.searchsorted(keys_c, cols[:-1] + 0.5).to(_I32)
+    cand_end = torch.searchsorted(keys_c, cols[:-1] + (1 << 30)).to(_I32)
     missed = torch.any((c_bounds[1:] - c_bounds[:-1]) > col_cap)
 
     keys_b, blockers = _sort_atoms_xycols(frac_atoms, [radii, gidx],
                                           nbx, nby)
     cstarts_b = torch.searchsorted(
         keys_b, torch.arange(nbx * (nby + 2) + 1, dtype=_F32, device=dev))
-    b0 = _neighbourhood_columns(np.arange(n_cols), nbx, nby)
-    b_st, b_cnt, b_missed = _runs(cstarts_b, b0, window)
+    b_st, b_cnt, b_missed = _runs(cstarts_b, n_cols, nbx, nby, window)
     nudge = matvec3(dirs * 0.2, inv_cell).contiguous()
     return SurfaceLayout(centers, c_bounds.contiguous(),
                          cand_end.contiguous(), blockers, b_st, b_cnt,
@@ -576,8 +596,8 @@ def void_masks_columns(frac_atoms, cell, radii, grid, probe: float,
 
 def grid_lookup(field, frac_pts, grid):
     """Nearest-voxel lookup of a grid field at fractional points."""
-    gvec = torch.tensor(grid, dtype=_F32, device=frac_pts.device)
-    gmax = torch.tensor(grid, dtype=_I32, device=frac_pts.device) - 1
+    gvec = _on_device(tuple(grid), _F32, frac_pts.device)
+    gmax = _on_device(tuple(grid), _I32, frac_pts.device) - 1
     f = _wrap01(frac_pts)
     idx = torch.minimum((f * gvec).to(_I32), gmax).long()
     return field[idx[..., 0], idx[..., 1], idx[..., 2]]
@@ -598,8 +618,8 @@ def surface_candidate_mask(frac_atoms, inv_cell, radii, r_probe, dirs,
     dev = frac_atoms.device
     if cand_mask is None:
         return torch.ones((n,), dtype=torch.bool, device=dev)
-    gvec = torch.tensor(grid, dtype=_F32, device=dev)
-    gmax = torch.tensor(grid, dtype=_I32, device=dev) - 1
+    gvec = _on_device(tuple(grid), _F32, dev)
+    gmax = _on_device(tuple(grid), _I32, dev) - 1
     fbase = _wrap01(frac_atoms)
     k = dirs.shape[0]
     md = cand_mask

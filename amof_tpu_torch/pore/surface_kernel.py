@@ -147,7 +147,9 @@ def surface_valid_columns(frac_atoms, cell, radii, r_probe, dirs, grid,
 def _launch_surface(lay, cell, inv_cell, dirs, r_probe, grid, nbx, nby,
                     n_z, chunk):
     """Kernel #6 on a prepared layout. The kernel writes every row of its
-    outputs, so nothing is cleared first."""
+    outputs in the same launch, so nothing is cleared first: the rows of
+    its groups, and False / 0 in every other row (inactive slots, rows
+    past ``n_z * chunk`` of a column, rows outside every column)."""
     from amof_tpu_torch import _build
 
     dev = cell.device

@@ -1024,3 +1024,161 @@ def test_ring_census_card_equals_cpu_on_3x3x3_net(cuda):
     assert card[1] == cpu[1]
     assert np.asarray(card[0].sel(ring_var="RC")).ravel().tolist() == [432.0]
     assert not card[1][0]["Supercell census"]
+
+
+POISON = 0x7FFFFFFF  # an index past any grid
+
+
+def poisoned(dev):
+    """Leaves the caching allocator's free blocks full of ``POISON``:
+    tensors of that value, 512 B to 4 MB (its small and large pools),
+    freed, so that a row a kernel does not write holds an index past the
+    grid."""
+    junk = [torch.full((1 << e,), POISON, dtype=torch.int32, device=dev)
+            for e in range(7, 21) for _ in range(8)]
+    del junk
+
+
+def glass_surface_case(dev, seed, top_atoms=8):
+    """One frame of the benchmark's glass (``zif4-glass-9792``, bonded,
+    from ``seed``) as the pore step hands it to kernel #6: (frac, cell,
+    inverse, radii, directions, grid, surface plan, channel mask), with
+    ``top_atoms`` atoms of the last surface column moved a float32 ulp
+    below fz = 1."""
+    from amof_tpu_torch import FrameBatch
+    from amof_tpu_torch.data import elements
+    from amof_tpu_torch.pore import BatchedPore, grid_kernel, surface_kernel
+    from bench_torch import harness
+
+    bench = harness.Bench()
+    config = bench.config("zif4-glass-9792")
+    piece = harness.make_pieces(config, {"frames_per_piece": 1,
+                                         "pieces": 1}, seed, dev)[0]
+    batch = FrameBatch(piece["positions"], piece["cell"], piece["species"],
+                       piece["step"])
+    _, _, meta = BatchedPore(probe_radius=1.2, chan_radius=1.2,
+                             vol_method="mc", conn_resolution=0.5).prepare(
+        batch, device=dev)
+    cp, sp, grid = meta["col_plan"], meta["surf_plan"], meta["grid"]
+    radii = elements.vdw_radius_array()[piece["species"]].astype(np.float32)
+    c, r = on(dev, piece["cell"][0], radii)
+    inv = grid_kernel.host_inverse(c)
+    frac = torch.from_numpy(piece["positions"][0]).to(dev) @ inv
+    frac = frac - torch.floor(frac)
+    last = ((frac[:, 0] * sp["nbx"]).long() == sp["nbx"] - 1) & (
+        (frac[:, 1] * sp["nby"]).long() == sp["nby"] - 1)
+    top = torch.nonzero(last)[:top_atoms, 0]
+    frac[top, 2] = 1.0 - 2.0**-24
+    frac = frac.contiguous()
+    dirs = torch.from_numpy(grid_kernel.fibonacci_sphere(meta["k"])).to(dev)
+    _, m_chan, _, _ = surface_kernel.void_masks_points(
+        frac, c, r, grid, 1.2, 1.2, cp["nbx"], cp["nby"], cp["window"])
+    return frac, c, inv, r, dirs, grid, sp, m_chan, top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [2**41 + 15838, 2**42 + 104729])
+@pytest.mark.parametrize("crowded", [False, True])
+def test_surface_kernel_writes_every_row_on_the_glass(cuda, seed, crowded):
+    """Kernel #6 on the glass's surface layout, atoms of its last column
+    a float32 ulp below fz = 1 (where the layout's float32 sort key once
+    put them past the last column), with and without a ``col_cap`` that
+    leaves rows of every column past ``n_z * chunk``: launched into
+    memory full of an index past the grid, every index lies in the grid
+    and the outputs equal the plain version."""
+    from amof_tpu_torch.pore import grid_kernel, surface_kernel
+
+    frac, c, inv, r, dirs, grid, sp, m_chan, top = glass_surface_case(
+        cuda, seed)
+    cand = grid_kernel.surface_candidate_mask(frac, inv, r, 1.2, dirs, grid,
+                                              m_chan)
+    assert bool((~cand[top]).any())  # a non-candidate at the top of z
+    col_cap = 64 if crowded else sp["col_cap"]
+    args = (frac, c, r, 1.2, dirs, grid, sp["nbx"], sp["nby"], sp["window"],
+            sp["chunk"], col_cap)
+    ref = grid_kernel.surface_valid_columns(*args, cand_mask=m_chan,
+                                            inv_cell=inv)
+    n_vox = grid[0] * grid[1] * grid[2]
+    for _ in range(3):
+        poisoned(cuda)
+        got = surface_kernel.surface_valid_columns(*args, cand_mask=m_chan,
+                                                   inv_cell=inv)
+        torch.cuda.synchronize()
+        for idx in got[1:3]:
+            assert 0 <= int(idx.min()) and int(idx.max()) < n_vox
+        assert_same(got, ref)
+    assert bool(ref[5]) == crowded
+
+
+@pytest.mark.cuda
+def test_surface_kernel_clears_rows_outside_every_column(cuda):
+    """A layout whose last column ends before its last rows (as the
+    float32 sort key once left them): kernel #6 writes those rows False /
+    0, as the plain version leaves them, into memory full of an index
+    past the grid."""
+    from amof_tpu_torch.pore import grid_kernel, surface_kernel
+
+    frac, c, inv, r, dirs, grid, sp, m_chan, _ = glass_surface_case(
+        cuda, 2**41 + 15838)
+    nbx, nby, window, chunk = sp["nbx"], sp["nby"], sp["window"], sp["chunk"]
+    n_z = -(-sp["col_cap"] // chunk)
+    lay = grid_kernel.surface_layout(frac, inv, r, 1.2, dirs, grid, nbx,
+                                     nby, window, sp["col_cap"], m_chan)
+    cb = lay.c_bounds.clone()
+    cb[-1] -= 5  # five rows outside every column
+    lay = lay._replace(c_bounds=cb,
+                       cand_end=torch.minimum(lay.cand_end, cb[1:]))
+    ref = grid_kernel.surface_valid_tiles_plain(
+        lay, c, inv, dirs, 1.2, grid, nbx, nby, window, n_z, chunk)
+    n = ref[0].shape[0]
+    for _ in range(3):
+        poisoned(cuda)
+        got = surface_kernel._launch_surface(lay, c, inv, dirs, 1.2, grid,
+                                             nbx, nby, n_z, chunk)
+        assert_same(got, ref)
+    tail = slice(int(cb[-1]), n)
+    assert not bool(ref[0][tail].any() or ref[1][tail].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window_scale", [1.0, 0.25])
+def test_pore_graphed_frames_equal_eager(cuda, monkeypatch, window_scale):
+    """The pore step's column-plan frames replayed from one CUDA graph a
+    call (``frame_table.FrameGraph``) give the records of the same frames
+    run eagerly on the card, bit for bit, on 8 frames of the benchmark's
+    glass with ``pore_32``'s options; window_scale 0.25 misses every frame
+    and sends it up the retry ladder, each rung capturing its own graph."""
+    from amof_tpu_torch import FrameBatch
+    from amof_tpu_torch.ops import frame_table
+    from amof_tpu_torch.pore import BatchedPore
+    from bench_torch import harness
+
+    bench = harness.Bench()
+    config = bench.config("zif4-glass-9792")
+    opts = dict(harness.load_traffic(bench.workload("glass9792.pore"))[
+        "options"], window_scale=window_scale)
+    piece = harness.make_pieces(config, {"frames_per_piece": 8,
+                                         "pieces": 1}, 2**41 + 3, cuda)[0]
+    batch = FrameBatch(piece["positions"], piece["cell"], piece["species"],
+                       piece["step"])
+
+    def run():
+        before = tracing.snapshot()
+        recs, _ = BatchedPore(**opts).run(batch, device=cuda)
+        return recs, tracing.diff(tracing.snapshot(), before)["counts"]
+
+    graphed, counts = run()
+    missed = counts.get("pore.frames_missed", 0)
+    assert missed == (0 if window_scale == 1.0 else 8)
+    assert counts["pore.frames_graphed"] == 8 + counts.get(
+        "pore.frames_retried", 0)
+    assert (counts["pore.graph_captures"] == 1) == (missed == 0)
+
+    class Eager(frame_table.FrameGraph):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **dict(kw, graphed=False, memory=None))
+
+    monkeypatch.setattr(frame_table, "FrameGraph", Eager)
+    eager, counts = run()
+    assert counts.get("pore.frames_graphed", 0) == 0
+    assert graphed == eager

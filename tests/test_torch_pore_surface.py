@@ -172,3 +172,56 @@ def test_missed_flag(window, col_cap):
     ref, got, _ = run_both(frac, cell, radii, 8, window=window,
                            col_cap=col_cap)
     assert bool(ref[5]) == bool(got[5]) is True
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_centers_at_the_top_of_z_stay_in_their_column(masked):
+    """Kernel #6's layout puts every center in its own column's range of
+    rows, candidates first, for atoms a float32 ulp below fz = 1 in the
+    last column too. The sort key was ``col + fz / 2`` (non-candidates
+    ``col + 0.5 + fz / 2``) in float32, which rounds up to the next part:
+    a candidate of the last column then sorted among its non-candidates,
+    and a non-candidate past ``c_bounds[C]``, outside every column, where
+    kernel #6 left its row unwritten and the plain version dropped it.
+    ``masked``: candidates from a slab of voxels in the middle of z, so
+    the atoms near z = 1 are non-candidates; else every atom is one."""
+    frac, cell, radii = system(5)
+    top = np.float32(1.0) - np.float32(2.0**-24)
+    frac[:4, 0] = frac[:4, 1] = [0.70, 0.80, 0.90, 0.96]
+    frac[:4, 2] = [top, np.nextafter(top, 0), 0.0, top]
+    cand_mask = None
+    if masked:
+        cand_mask = np.zeros(GRID, bool)
+        cand_mask[:, :, 6:8] = True
+    f, c, r = (torch.from_numpy(a) for a in (frac, cell, radii))
+    dirs = torch.from_numpy(grid_kernel.fibonacci_sphere(8))
+    inv = grid_kernel.host_inverse(c)
+    tm = None if cand_mask is None else torch.from_numpy(cand_mask)
+    lay = grid_kernel.surface_layout(f, inv, r, 1.2, dirs, GRID, 3, 3, 448,
+                                     128, tm)
+    cand = grid_kernel.surface_candidate_mask(f, inv, r, 1.2, dirs, GRID,
+                                              tm).numpy()
+    assert cand[:4].all() != masked
+    cb, ce = lay.c_bounds.numpy(), lay.cand_end.numpy()
+    assert cb[0] == 0 and cb[-1] == len(frac)
+    gis = lay.centers[4].numpy().astype(np.int64)
+    col = (np.minimum((frac[gis, 0] * 3).astype(int), 2) * 3
+           + np.minimum((frac[gis, 1] * 3).astype(int), 2))
+    rows = np.arange(len(frac))
+    assert (cb[col] <= rows).all() and (rows < cb[col + 1]).all()
+    assert ((rows < ce[col]) == cand[gis]).all()
+    # z sorted within each part of a column
+    fz = lay.centers[2].numpy()
+    same = (col[1:] == col[:-1]) & (cand[gis][1:] == cand[gis][:-1])
+    assert (fz[1:][same] >= fz[:-1][same]).all()
+    # the plain version tests every candidate row (all columns fit col_cap)
+    valid, i_pt, i_nu = grid_kernel.surface_valid_tiles_plain(
+        lay, c, inv, dirs, 1.2, GRID, 3, 3, 448, 2, 64)
+    _, los, his = grid_kernel.active_slots(lay, 2, 64)
+    active = np.zeros(len(frac), bool)
+    for lo, hi in zip(los, his):
+        active[lo:hi] = True
+    assert active[cand[gis]].all()
+    n_vox = GRID[0] * GRID[1] * GRID[2]
+    assert 0 <= int(i_pt.min()) and int(i_pt.max()) < n_vox
+    assert 0 <= int(i_nu.min()) and int(i_nu.max()) < n_vox
